@@ -7,6 +7,11 @@ imports on a machine without CUDA).  Each source compiles in its own
 `nvcc` process, all started together, and the objects are linked once.
 The library is rebuilt only when a hash of the sources changes.
 
+Generated kernels (the AIR constraint kernels of `stark/air_codegen.py`)
+are built the same way into a library of their own per source text,
+`build/ethrex_tpu_torch/air/lib<hash>.so`, by `load_generated`
+(`build_generated` compiles several at once).
+
 Every wrapper that launches a kernel adds one to `LAUNCHES[name]` right
 where it launches, and nowhere else; `reset_launches()` zeroes the counts
 so a caller can show which kernels a run went through.
@@ -20,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -29,13 +35,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ethrex_tpu_torch"
 LIB_NAME = "libethrex_kernels.so"
 
-# kernel name -> its source under csrc/; LAUNCHES counts its launches
+# kernel name -> its source in the package; LAUNCHES counts its launches
 KERNELS = {
-    "ntt": "ntt.cu",
-    "poseidon2_hash_leaves": "poseidon2.cu",
-    "poseidon2_compress_level": "poseidon2.cu",
-    "mod_matmul": "mod_matmul.cu",
-    "fri_fold": "fri_fold.cu",
+    "ntt": "csrc/ntt.cu",
+    "poseidon2_hash_leaves": "csrc/poseidon2.cu",
+    "poseidon2_compress_level": "csrc/poseidon2.cu",
+    "mod_matmul": "csrc/mod_matmul.cu",
+    "fri_fold": "csrc/fri_fold.cu",
+    "air_constraints": "stark/air_codegen.py",
+    "batch_inv": "csrc/batch_inv.cu",
+    "bn254_msm_g1": "csrc/bn254_msm.cu",
+    "bn254_msm_g2": "csrc/bn254_msm.cu",
 }
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -135,6 +145,8 @@ _SIGNATURES = {
     "mod_matmul_rows": [_P, _P, _P, _L, _L, _I, _L, _L, _I, _P],
     "mod_matmul_splitk": [_P, _P, _P, _P, _L, _L, _I, _L, _L, _I, _I, _P],
     "fri_fold": [_P, _P, _P, _P, _P, _L, _P],
+    "batch_inv": [_P, _P, _L, _I, _P],
+    "bn254_msm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -153,6 +165,81 @@ def lib():
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+GEN_DIR = BUILD_DIR / "air"
+# source hash -> nvcc wall seconds, for the generated sources built by
+# this process
+GENERATED_BUILD_S: dict = {}
+_generated: dict = {}
+
+
+def _generated_key(text: str) -> str:
+    h = hashlib.sha256(text.encode())
+    h.update((CSRC / "babybear.cuh").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_generated(texts: list[str], verbose: bool = False) -> list[Path]:
+    """Compile generated CUDA sources (one nvcc each, all started
+    together) into `GEN_DIR/lib<hash>.so`; a source already built is
+    skipped.  Raises on any compiler error."""
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs, paths = [], []
+    for text in texts:
+        key = _generated_key(text)
+        lib_path = GEN_DIR / f"lib{key}.so"
+        paths.append(lib_path)
+        if lib_path.exists() or any(k == key for k, *_ in procs):
+            continue
+        nvcc = nvcc or _nvcc()
+        src = GEN_DIR / f"{key}.cu"
+        src.write_text(text)
+        tmp = GEN_DIR / f"lib{key}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-shared",
+               str(src), "-o", str(tmp)]
+        procs.append((key, tmp, lib_path, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT)))
+    errors = []
+    for key, tmp, lib_path, t0, proc in procs:
+        out, _ = proc.communicate()
+        GENERATED_BUILD_S[key] = time.perf_counter() - t0
+        text = out.decode(errors="replace")
+        if proc.returncode != 0:
+            errors.append(f"{key}.cu (rc {proc.returncode}):\n{text}")
+            continue
+        if verbose and text.strip():
+            print(f"[nvcc {key}.cu]\n{text}", flush=True)
+        os.replace(tmp, lib_path)
+    if errors:
+        raise RuntimeError("nvcc failed on generated kernels:\n"
+                           + "\n".join(errors))
+    return paths
+
+
+def load_generated(text: str, entries: list[str]):
+    """The loaded library of a generated source (built on first use);
+    each name in `entries` is bound as
+    (lde, per, out, N, B, stream) -> int."""
+    key = _generated_key(text)
+    handle = _generated.get(key)
+    if handle is not None:
+        return handle
+    with _lock:
+        handle = _generated.get(key)
+        if handle is None:
+            path, = build_generated([text])
+            handle = ctypes.CDLL(str(path))
+            for name in entries:
+                fn = getattr(handle, name)
+                fn.argtypes = [_P, _P, _P, _L, _L, _P]
+                fn.restype = ctypes.c_int
+            _generated[key] = handle
+    return handle
 
 
 def call(entry: str, device: torch.device, *args) -> None:

@@ -8,8 +8,9 @@ to int64, where a 31-bit by 31-bit product is exact.  Every operation
 returns the canonical residue, so results equal the JAX functions bit for
 bit whatever the order of the arithmetic.
 
-`mod_matmul` is the one kernel here: on a CUDA tensor it launches
-`csrc/mod_matmul.cu`, on a CPU tensor it runs the plain version below.
+Two kernels live here: `mod_matmul` (K3, `csrc/mod_matmul.cu`) and
+`batch_mont_inv` (K7, `csrc/batch_inv.cu`).  On a CUDA tensor each wrapper
+launches its kernel; on a CPU tensor it runs the plain version beside it.
 """
 
 from __future__ import annotations
@@ -168,13 +169,31 @@ def mont_inv(a):
     return mont_pow(a, P - 2)
 
 
-def batch_mont_inv(a):
-    """Elementwise inverse of a nonzero array.
-
-    The JAX version uses Montgomery's trick over two associative scans;
-    a field inverse is unique, so the per-element Fermat power used here
-    gives the same residues (a dedicated kernel is queued in ROADMAP)."""
+def batch_mont_inv_plain(a):
+    """Plain version of `batch_mont_inv`: a per-element Fermat power (0
+    maps to 0).  The JAX version uses Montgomery's trick over two
+    associative scans; a field inverse is unique, so the residues are the
+    same."""
     return mont_inv(a)
+
+
+# elements per thread of the batch-inverse kernel: the one Fermat power
+# per thread costs ~45 products, spread over this many elements
+_INV_CHUNK = 32
+
+
+def batch_mont_inv(a):
+    """Elementwise inverse of a nonzero array (Montgomery in and out).
+    Kernel K7 on a CUDA tensor, the Fermat power on a CPU tensor."""
+    if a.device.type != "cuda":
+        return batch_mont_inv_plain(a)
+    kernels.require_int32_cuda(a, "batch_mont_inv")
+    src = a.contiguous()
+    out = torch.empty_like(src)
+    kernels.call("batch_inv", a.device, kernels.ptr(src), kernels.ptr(out),
+                 src.numel(), _INV_CHUNK)
+    kernels.count("batch_inv")
+    return out
 
 
 def sum_mod(x, dim: int = -1):

@@ -136,8 +136,8 @@ def inv_x_minus_zeta(x, zeta):
     x: (...,) base Montgomery; zeta: (4,) ext Montgomery (not in the base
     field).  1/(x - z) = conj(x) / N(x), with conj(x) the product over the
     three other conjugates (a cubic with ext coefficients) and N(x) the
-    base-field minimal polynomial of z; N inverts by a per-element Fermat
-    power.  Returns (..., 4)."""
+    base-field minimal polynomial of z; N inverts through
+    `babybear.batch_mont_inv` (kernel K7 on the card).  Returns (..., 4)."""
     z1 = frobenius(zeta, 1)
     z2 = frobenius(zeta, 2)
     z3 = frobenius(zeta, 3)
@@ -158,7 +158,7 @@ def inv_x_minus_zeta(x, zeta):
     nacc = bb.add(m(nacc, x), e2)
     nacc = bb.sub(m(nacc, x), e3)
     norm = bb.add(m(nacc, x), e4)
-    return scalar_mul(conj, bb.mont_inv(norm))
+    return scalar_mul(conj, bb.batch_mont_inv(norm))
 
 
 def eval_ext_poly_at_ext(coeffs, point):

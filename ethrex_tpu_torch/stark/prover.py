@@ -5,7 +5,8 @@ of `_build_phases`, :458-583).  Pipeline per proof:
 
   1. commit    coset LDE (kernel K1) + Poseidon2 Merkle tree (K2)
   2. quotient  alpha <- transcript; AIR constraints over the LDE domain
-               (plain PyTorch on the device), alpha-combination (K3),
+               (generated kernel K6, stark/air_codegen.py), divisor
+               inverses (K7, once per shape), alpha-combination (K3),
                coset iNTT and chunk re-evaluation (K1), Merkle (K2)
   3. open      zeta <- transcript; trace and quotient at zeta, zeta*g
                (K1 iNTT, K3 evaluation)
@@ -39,7 +40,8 @@ from ..ops import fri
 from ..ops import merkle
 from ..ops import ntt
 from ..ops.challenger import Challenger
-from .air import Air, DeviceOps
+from . import air_codegen
+from .air import Air
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +63,7 @@ def _stretch_coeffs(coeffs: np.ndarray, n: int, p_len: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class _Tables:
-    periodic: list          # (N,) Montgomery LDE of each periodic column
+    periodic: torch.Tensor  # (P, N) Montgomery LDE of the periodic columns
     inv_stack: torch.Tensor  # [1/(x^n - 1) per coset class (B), 1/(x - g^{n-1}),
     #                          1/(x - g^r) per boundary], Montgomery
     x_minus_glast: torch.Tensor
@@ -107,7 +109,7 @@ def _tables(air: Air, log_n: int, lb: int, shift: int, device) -> _Tables:
     periodic_cols = air.periodic_columns(n)
     if len(periodic_cols) != air.num_periodic:
         raise ValueError("periodic_columns does not match num_periodic")
-    periodic = []
+    periodic = torch.empty((0, N), dtype=bb.I32, device=device)
     if periodic_cols:
         rows = []
         for vals in periodic_cols:
@@ -117,9 +119,8 @@ def _tables(air: Air, log_n: int, lb: int, shift: int, device) -> _Tables:
                 raise ValueError("periodic column length must divide n")
             coeffs = bb.to_mont_host(ntt.interpolate_host(vals))
             rows.append(_stretch_coeffs(coeffs, n, p_len))
-        evals = ntt.coset_evals_from_coeffs(
+        periodic = ntt.coset_evals_from_coeffs(
             bb.from_numpy(np.stack(rows), device), N, shift=shift)
-        periodic = list(evals.unbind(0))
     tables = _Tables(
         periodic=periodic, inv_stack=inv_stack,
         x_minus_glast=bb.to_mont(x_minus_glast),
@@ -148,13 +149,9 @@ def phase_quotient(air: Air, tb: _Tables, lde_cols, alpha, bound_vals,
     w, N = lde_cols.shape
     K = tb.num_constraints
     nb = len(tb.bounds_struct)
-    dev = DeviceOps(device)
-    rolled = torch.roll(lde_cols, -B, dims=1)
-    local = list(lde_cols.unbind(0))
-    nxt = list(rolled.unbind(0))
-    cons = air.constraints(local, nxt, tb.periodic, dev)
-    del rolled, nxt
-    cons = torch.stack([c.expand(N) for c in cons])               # (K, N)
+    # the next row of LDE point i is point i + B (kernel K6 reads it in
+    # place; the plain version rolls the LDE)
+    cons = air_codegen.evaluate(air, lde_cols, tb.periodic, B)    # (K, N)
     apow = ext.ext_powers(alpha, K + nb, device)                   # (K+nb, 4)
     # random linear combination of the constraint columns: one modular
     # matmul (N, K) @ (K, 4), reading the (K, N) stack in place

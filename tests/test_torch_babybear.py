@@ -101,6 +101,19 @@ def test_batch_mont_inv_bit_equal():
                           np.asarray(jbb.batch_mont_inv(a)))
 
 
+def test_batch_mont_inv_large_and_zero():
+    """The divisor-table size class (tens of thousands of elements), with
+    the edge values; the plain version (the Fermat power, what runs on the
+    CPU and what kernel K7 is held to) maps 0 to 0."""
+    a = _field(np.random.default_rng(16), (40000,))
+    a[:len(EDGE)] = EDGE
+    nz = a != 0
+    got = _np(bb.batch_mont_inv(_t(a)))
+    assert np.array_equal(got[nz], np.asarray(jbb.batch_mont_inv(a[nz])))
+    assert np.all(got[~nz] == 0)
+    assert np.array_equal(got, _np(bb.batch_mont_inv_plain(_t(a))))
+
+
 @pytest.mark.parametrize("montgomery", [True, False])
 @pytest.mark.parametrize("k", [1, 115, 128, 159, 9000])
 def test_mod_matmul_bit_equal(k, montgomery):
@@ -127,5 +140,6 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     kernels.reset_launches()
     a = _t(_field(np.random.default_rng(9), (8, 16)))
     bb.mod_matmul(a, _t(_field(np.random.default_rng(10), (16, 4))))
+    bb.batch_mont_inv(a)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
     assert kernels._lib is None      # importing and CPU use build nothing

@@ -185,7 +185,10 @@ def test_prove_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, ethrex_tpu_torch, ethrex_tpu_torch.convert, "
             "ethrex_tpu_torch.stark.prover, ethrex_tpu_torch.stark.verifier, "
-            "ethrex_tpu_torch.kernels\n"
+            "ethrex_tpu_torch.kernels, ethrex_tpu_torch.stark.aggregate, "
+            "ethrex_tpu_torch.stark.air_codegen, "
+            "ethrex_tpu_torch.ops.bn254_msm, ethrex_tpu_torch.crypto.groth16, "
+            "ethrex_tpu_torch.prover.gpu_backend\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'ethrex_tpu' or "
             "m.startswith('ethrex_tpu.')]\n"
