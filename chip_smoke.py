@@ -6,29 +6,44 @@ Phases:
   1. the card's name and power limit (nvidia-smi); the Groth16 wrap's key
      setup (host bignum work, minutes) starts in a child process and runs
      beside every later phase;
-  2. build the CUDA kernels from ethrex_tpu_torch/csrc and the generated
-     AIR constraint kernels of the path's three AIRs, one nvcc per source,
-     all started together;
+  2. build the CUDA kernels K1-K11 from ethrex_tpu_torch/csrc and the
+     generated AIR constraint kernels (K6) of the path's six AIRs, one
+     nvcc per source, all started together;
   3. hold every kernel against its plain PyTorch version on the card, at
      the shapes the main path gives it (bit-equal), and time both with
-     CUDA events: K1-K4 and K7 at the state / outer proof shapes, K6 once
-     per AIR (FriVerifyAir at its full 2^24-point LDE);
+     CUDA events: K1-K4 at the state proof's shapes; K6 once per AIR at
+     its full LDE (the plain version of the three largest on a 2^20 or
+     2^24-point range); K7 on the outer divisor stack; K8, K9 and K11 at
+     the state and the outer proof's shapes; K10 on the fused step's FRI
+     layer trees;
   4. the main path, with the launch counts zeroed just before and read
-     just after: `ethrex_tpu_torch.stark.prover.prove` on the state proof
-     of a 1,000-transfer-shaped batch (1,002 touched keys, 1,023 writes:
-     n = 2^19 rows x 115 columns, LDE 2^22) and on the binding proof
-     (Poseidon2SpongeAir over a 512-limb message), then
-     `prover.gpu_backend.prove_formats(..., "groth16")`: the recursive
-     aggregation of both into one outer FriVerifyAir STARK and the Groth16
-     wrap of its digest (BN254 MSMs, kernel K5);
-  5. checks: the port's verifier accepts both inner proofs and rejects a
-     tampered public input; `verify_aggregated` accepts the aggregate and
-     rejects a tampered inner FRI value; `wrap_verify` accepts the wrap
-     and rejects a wrong digest; K5 against its plain version on the
-     wrap's own MSM inputs; a small state proof made on the card equals
-     the same proof made by the plain versions on the CPU;
-  6. one JSON line with every kernel's launches, error and times, then
-     {"ok": true, "device": {...}} as the last line.
+     just after: `prover.gpu_backend.prove_vm_stages(..., "groth16")` on
+     a VM-mode batch shaped like the reference's BASELINE-3 (1,000
+     transactions over 4 blocks, 500 ETH transfers and 500 token calls,
+     plus one generic call of 1,996 steps): the state proof (1,002
+     touched keys, 1,023 writes: n = 2^19 x 115), TransferAir (2,000
+     segments: n = 2^20 x 278), TokenAir (500 segments: 2^18 x 117),
+     BytecodeAir (2^19 x 354), the VM-mode binding proof, the aggregation
+     of all five into one outer FriVerifyAir STARK (2^22 x 90) and the
+     Groth16 wrap of its digest (BN254 MSMs, K5);
+  5. the second entry point, `parallel.core.build_prove_step` (the fused
+     prove step), at log_n 15 and 20 with width 64, its counts zeroed
+     just before each run and read just after; at log_n 15 it equals the
+     same step run with the plain versions on the CPU;
+  6. checks: the port's verifier accepts the five inner proofs and
+     rejects a tampered public input of four; `verify_aggregated` accepts
+     the aggregate and rejects a tampered inner FRI value; `wrap_verify`
+     accepts the wrap and rejects a wrong digest;
+  7. the earlier slice's path, its counts zeroed just before and read
+     just after: a state proof (cut to 126 keys and 127 writes: n = 2^16
+     x 115) and a 512-limb binding proof (64 chunks), then
+     `prover.gpu_backend.prove_formats(..., "groth16")` over the two, with
+     the checks of phase 6;
+  8. K5 against its plain version on the wrap's own MSM inputs; a small
+     state proof made on the card equals the same proof made by the plain
+     versions on the CPU;
+  9. one JSON line with every kernel's launches (per path), error and
+     times, then {"ok": true, "device": {...}} as the last line.
 
 Any failure raises, so the exit code is not 0 and no result line prints.
 Imports nothing of JAX and nothing of the JAX package.
@@ -102,6 +117,16 @@ def field(rng, shape, dev):
     return bb.from_numpy(
         rng.integers(0, bb.P, size=shape, dtype=np.uint64).astype(np.uint32),
         dev)
+
+
+def field_dev(rng, shape, dev):
+    """Random field elements made on the card (a torch generator seeded
+    from `rng`): the full-size inputs are gigabytes, too slow to draw on
+    the host."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2**62)))
+    return torch.randint(0, 2013265921, shape, generator=gen,
+                         dtype=torch.int32, device=dev)
 
 
 def compare(name, kern, plain, kernel_reps=5, plain_reps=3):
@@ -241,64 +266,91 @@ def check_kernels(dev, rng) -> dict:
     return rows
 
 
+BINDING_CHUNKS = 10     # the VM-mode binding message: 74 limbs -> 80
+
+
 def path_airs():
-    """The AIRs of the main path at their full size: the state proof's
-    StateUpdateAir (depth 10, 16-period segments), the binding proof's
-    Poseidon2SpongeAir (64 chunks) and the outer FriVerifyAir over both
-    (the deepest FRI layer-0 path has depth 21, so 32-period segments)."""
+    """The AIRs of the main path at their full size, with the number of
+    points the plain K6 version is held on: the state proof's
+    StateUpdateAir (depth 10, 16-period segments), the VM batch's
+    TransferAir (2,048 segments), TokenAir (512) and BytecodeAir (2,048
+    steps), the VM-mode binding proof's Poseidon2SpongeAir (10 chunks) and
+    the outer FriVerifyAir over all five (the deepest FRI layer-0 path,
+    TransferAir's, has depth 22, so 32-period segments).  The plain
+    interpreter of TransferAir, BytecodeAir and the outer AIR does not fit
+    beside the kernel's output at the full LDE, so those are held on the
+    first 2^20 (2^24) points, a domain of its own."""
+    from ethrex_tpu_torch.models import bytecode_air as bca
     from ethrex_tpu_torch.models import fri_verifier_air as fva
     from ethrex_tpu_torch.models import poseidon2_air as pair
     from ethrex_tpu_torch.models import state_update_air as sua
+    from ethrex_tpu_torch.models import token_air as tka
+    from ethrex_tpu_torch.models import transfer_air as ta
 
     return {"StateUpdateAir": (sua.StateUpdateAir(10, seg_periods=16),
-                               1 << 19),
-            "Poseidon2SpongeAir": (pair.Poseidon2SpongeAir(64), 1 << 11),
-            "FriVerifyAir": (fva.FriVerifyAir(21), 1 << 21)}
+                               1 << 19, None),
+            "TransferAir": (ta.TransferAir(), 1 << 20, 1 << 20),
+            "TokenAir": (tka.TokenAir(), 1 << 18, None),
+            "BytecodeAir": (bca.BytecodeAir(), 1 << 19, 1 << 20),
+            "Poseidon2SpongeAir": (pair.Poseidon2SpongeAir(BINDING_CHUNKS),
+                                   1 << 8, None),
+            "FriVerifyAir": (fva.FriVerifyAir(22), 1 << 22, 1 << 24)}
 
 
 def check_air_kernels(dev, rng) -> dict:
-    """K6 for each AIR of the path at its LDE size (blowup 8), against
-    the DeviceOps evaluation with its rolled LDE."""
+    """K6 for each AIR of the path at its LDE size (blowup 8): timed at
+    the full size, held bit-equal to the DeviceOps evaluation with its
+    rolled LDE on the full domain or on the first `plain_points` points
+    taken as a domain of their own."""
     from ethrex_tpu_torch.stark import air_codegen
 
     per_air = []
-    for name, (air, n) in path_airs().items():
+    for name, (air, n, plain_points) in path_airs().items():
         N = n << 3
         graph = air_codegen.record(air)
-        lde = field(rng, (air.width, N), dev)
-        per = field(rng, (air.num_periodic, N), dev)
+        M = plain_points or N
+        lde = field_dev(rng, (air.width, M), dev)
+        per = field_dev(rng, (air.num_periodic, M), dev)
         err, ms, pms = compare(
-            f"air_constraints {name} ({air.width} x {N})",
+            f"air_constraints {name} ({air.width} x {M})",
             lambda: air_codegen.evaluate(air, lde, per, 8),
             lambda: air_codegen.evaluate_plain(air, lde, per, 8),
-            plain_reps=1)
+            kernel_reps=3, plain_reps=1)
+        if M != N:                   # time the kernel at the full size
+            del lde, per
+            torch.cuda.empty_cache()
+            lde = field_dev(rng, (air.width, N), dev)
+            per = field_dev(rng, (air.num_periodic, N), dev)
+            ms = cuda_ms(lambda: air_codegen.evaluate(air, lde, per, 8), 3)
         K = graph.num_constraints
         counts = graph.counts()
         b_ms, b_by = bound_ms(4 * (air.width + air.num_periodic + K) * N,
                               counts["mul"] * N)
         per_air.append(dict(air=name, shape=f"({air.width}, {N}) -> ({K}, "
-                            f"{N})", kernels=len(air_codegen.groups(graph)),
+                            f"{N})", held_on_points=M,
+                            kernels=len(air_codegen.groups(graph)),
                             nodes=sum(counts.values()), muls=counts["mul"],
                             max_abs_err=err, ms=ms, plain_ms=pms,
-                            bound_ms=b_ms, bound_by=b_by))
+                            plain_points=M, bound_ms=b_ms, bound_by=b_by))
         log(f"[kernels] air_constraints {name} ok: {per_air[-1]}")
         del lde, per
         torch.cuda.empty_cache()
-    big = per_air[-1]            # the outer FriVerifyAir, the largest
+    big = max(per_air, key=lambda r: r["ms"])
     return dict(max_abs_err=max(r["max_abs_err"] for r in per_air),
                 ms=big["ms"], plain_ms=big["plain_ms"],
                 bound_ms=big["bound_ms"], bound_by=big["bound_by"],
-                shape=f"FriVerifyAir {big['shape']}", per_air=per_air)
+                shape=f"{big['air']} {big['shape']} (plain on "
+                      f"{big['plain_points']} points)", per_air=per_air)
 
 
 def check_batch_inv(dev, rng) -> dict:
     """K7 on the outer proof's divisor stack: B + N + nb N elements for
-    N = 2^24 and the FriVerifyAir's 10 boundary rows."""
+    N = 2^25 and the FriVerifyAir's 10 boundary rows."""
     from ethrex_tpu_torch.ops import babybear as bb
 
-    N = 1 << 24
+    N = 1 << 25
     n = 8 + N + 10 * N
-    a = field(rng, (n,), dev)
+    a = field_dev(rng, (n,), dev)
     a[a == 0] = bb.MONT_ONE
     err, ms, pms = compare("batch_inv", lambda: bb.batch_mont_inv(a),
                            lambda: bb.batch_mont_inv_plain(a), plain_reps=1)
@@ -309,6 +361,124 @@ def check_batch_inv(dev, rng) -> dict:
     row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
                bound_by=b_by, shape=f"outer divisor stack ({n},)")
     log(f"[kernels] batch_inv ok: {row}")
+    return row
+
+
+# the shapes K8, K9 and K11 see on the path: (name, w, n, boundaries) of
+# the state proof and of the outer proof (blowup 8)
+GLUE_SHAPES = (("state", 115, 1 << 19, 24), ("outer", 90, 1 << 22, 10))
+
+
+def check_ext_glue(dev, rng) -> dict:
+    """K8, K9 and K11 against their plain versions at the state proof's
+    and the outer proof's shapes, timed at both; the row keeps the outer
+    proof's times (the larger)."""
+    from ethrex_tpu_torch.ops import ext
+
+    rows = {"deep_compose": [], "quotient_combine": [], "ext_poly_eval": []}
+    for tag, w, n, nb in GLUE_SHAPES:
+        B, N = 8, n << 3
+
+        def point():
+            return tuple(int(v) for v in rng.integers(0, 2013265921, 4))
+
+        # K8: two openings and the B quotient chunks
+        pts = field_dev(rng, (N,), dev)
+        opens = [(point(), field_dev(rng, (N, 4), dev), field_dev(rng, (w, 4), dev),
+                  field_dev(rng, (w, 4), dev)) for _ in range(2)]
+        q = dict(q_lde=field_dev(rng, (B, 4, N), dev),
+                 q_z=field_dev(rng, (B, 4), dev), gq=field_dev(rng, (B, 4), dev))
+        err, ms, pms = compare(
+            f"deep_compose {tag} (N = {N})",
+            lambda: ext.deep_compose(pts, opens, **q),
+            lambda: ext.deep_compose_plain(pts, opens, **q), plain_reps=1)
+        # per point: two conjugates and norms (22 products), the norms
+        # inverted by Montgomery's trick (3 each), 1/(x - z) (8), three
+        # ext products for the chunks' sum and the two quotients
+        b_ms, b_by = bound_ms(4 * N * (1 + 8 + 4 * B + 4),
+                              N * (22 + 6 + 8 + 18 * (B + 2)))
+        rows["deep_compose"].append(dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, shape=f"{tag}: N = {N}, two openings, {B} "
+                                 f"quotient chunks"))
+        del pts, opens, q
+        # K9: the quotient's divisors and nb boundary terms
+        acc = field_dev(rng, (N, 4), dev)
+        xm = field_dev(rng, (N,), dev)
+        inv = field_dev(rng, (B + N + nb * N,), dev)
+        lde = field_dev(rng, (w, N), dev)
+        cols = [int(c) for c in rng.integers(0, w, nb)]
+        bvals, apb = field_dev(rng, (nb,), dev), field_dev(rng, (nb, 4), dev)
+        err, ms, pms = compare(
+            f"quotient_combine {tag} (N = {N}, {nb} boundaries)",
+            lambda: ext.quotient_combine(acc, xm, inv, lde, cols, bvals,
+                                         apb, B),
+            lambda: ext.quotient_combine_plain(acc, xm, inv, lde, cols,
+                                               bvals, apb, B), plain_reps=1)
+        # reads acc, x - g^(n-1), the B coset-class inverses of
+        # x^n - 1, one LDE word and one inverse per boundary; writes the
+        # (N, 4) result
+        b_ms, b_by = bound_ms(4 * (4 * N + N + B + 2 * nb * N + 4 * N),
+                              N * (5 + 5 * nb))
+        rows["quotient_combine"].append(dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, shape=f"{tag}: N = {N}, {nb} boundaries"))
+        del acc, xm, inv, lde
+        # K11: the quotient chunks at zeta (a (B, n, 4) view of the
+        # (B, 4, n) coefficients) and the (n, 4) power table of the open
+        # phase
+        chunks = field_dev(rng, (B, 4, n), dev).permute(0, 2, 1)
+        z = point()
+        err, ms, pms = compare(
+            f"ext_poly_eval {tag} ({B} x {n})",
+            lambda: ext.eval_ext_poly_at_ext(chunks, z),
+            lambda: ext.eval_ext_poly_at_ext_plain(chunks, z), plain_reps=1)
+        err2, ms2, pms2 = compare(
+            f"ext_powers_table {tag} ({n})",
+            lambda: ext.powers_table(z, n, dev),
+            lambda: ext.ext_powers_blocked(z, n, device=dev), plain_reps=1)
+        # one ext product per power and one per coefficient
+        b_ms, b_by = bound_ms(4 * (B * n * 4 + B * 4 + n * 4),
+                              18 * (B * n + n))
+        rows["ext_poly_eval"].append(dict(
+            max_abs_err=max(err, err2), ms=ms + ms2, plain_ms=pms + pms2,
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"{tag}: {B} chunks x {n} at zeta + the ({n}, 4) power "
+                  f"table"))
+        del chunks
+        torch.cuda.empty_cache()
+    out = {}
+    for name, rs in rows.items():
+        out[name] = dict(rs[-1], at_state_shape=rs[0])
+        log(f"[kernels] {name} ok: {out[name]}")
+    return out
+
+
+def check_batched_roots(dev, rng, log_n: int, log_blowup: int = 2,
+                        log_final_size: int = 5) -> dict:
+    """K10 on the fused step's FRI layer trees (log_n = 20)."""
+    from ethrex_tpu_torch.ops import merkle
+
+    log_N = log_n + log_blowup
+    sizes = tuple(1 << (log_N - 1 - k) for k in range(log_N - log_final_size))
+    d = field(rng, (sum(sizes), 8), dev)
+
+    def kern():
+        return torch.stack(merkle.batched_roots(d, sizes))
+
+    def plain():
+        return torch.stack(merkle.batched_roots_plain(d, sizes))
+
+    err, ms, pms = compare(f"merkle_batched_level ({len(sizes)} trees)",
+                           kern, plain, plain_reps=1)
+    b_ms, b_by = bound_ms(4 * 8 * (sum(sizes) + len(sizes)),
+                          (sum(sizes) - len(sizes)) * 772)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+               bound_by=b_by, shape=f"{len(sizes)} FRI layer trees, "
+                                    f"{sum(sizes)} leaves (fused step, "
+                                    f"log_n {log_n})")
+    log(f"[kernels] merkle_batched_level ok: {row}")
+    del d
     return row
 
 
@@ -408,16 +578,12 @@ def state_batch(rng, num_keys: int, num_writes: int):
     return tree, r_pre, accesses, depth
 
 
-def schedule_for(depth: int) -> int:
-    """seg_periods for a tree depth (the backend's `_schedule_for`)."""
-    return max(8, 1 << (depth + 4).bit_length())
-
-
 def state_job(rng, num_keys, num_writes):
     from ethrex_tpu_torch.models import state_update_air as sua
+    from ethrex_tpu_torch.prover import gpu_backend
 
     tree, r_pre, accesses, depth = state_batch(rng, num_keys, num_writes)
-    S = schedule_for(depth)
+    S = gpu_backend._schedule_for(depth)
     air = sua.StateUpdateAir(depth, seg_periods=S)
     trace = sua.generate_state_update_trace(accesses, r_pre, depth, S)
     pub = sua.state_update_public_inputs(accesses, r_pre, tree.root, S)
@@ -434,28 +600,100 @@ def binding_job(rng, limbs: int):
     return air, pair.generate_sponge_trace(msg), pair.sponge_public_inputs(msg)
 
 
-def make_jobs(rng):
-    """The batch's two inner proof jobs (host trace generation)."""
-    t0 = time.perf_counter()
-    state = state_job(rng, num_keys=1002, num_writes=1023)
-    binding = binding_job(rng, limbs=512)
-    log(f"[main] host trace generation {time.perf_counter() - t0:.1f} s: "
-        f"state {state[1].shape} (depth {state[0].depth}, seg_periods "
-        f"{state[0].seg_periods}), binding {binding[1].shape}")
-    if state[1].shape != (1 << 19, 115):
-        raise AssertionError(f"state trace shape {state[1].shape}")
-    return state, binding
+def balance_slot(holder: bytes) -> int:
+    """A token's balance slot of `holder`: keccak(holder . 0) as the
+    Solidity mapping at slot 0 lays it out."""
+    from ethrex_tpu_torch.crypto.keccak import keccak256
+
+    return int.from_bytes(keccak256(bytes(12) + holder + bytes(32)), "big")
+
+
+def vm_batch(rng, blocks: int = 4, per_block: int = 125):
+    """BASELINE-3's VM stream: per block, `per_block` rounds of an ETH
+    transfer (value 100 + i to 0x50 + i % 32) and a token call (value 0,
+    amount 10 + i to 0x60 + i % 16), each followed by its coinbase
+    segment, from one sender; plus one generic call to a counting loop of
+    1,996 steps.  Balances are consistent across the stream; the sender's
+    and the token holder's starting balances come from the seed."""
+    from ethrex_tpu_torch.guest import bytecode_vm as bv
+    from ethrex_tpu_torch.guest.transfer_log import (BcCall, TokSeg,
+                                                     VmBatch)
+    from ethrex_tpu_torch.models import transfer_air as ta
+    from ethrex_tpu_torch.primitives.account import AccountState
+
+    sender = bytes.fromhex("a11ce0" * 6 + "a11c")
+    token = bytes([0x70]) * 20
+    coinbase = bytes([0xC0]) * 20
+    base_fee, gas_token = 7, 51_234
+    price = base_fee + 1            # max priority fee 1
+    s = AccountState(nonce=0, balance=10**21 + int(rng.integers(0, 10**9)))
+    recips: dict = {}
+    cb = None
+    slots = {h: balance_slot(h) for h in
+             [sender] + [bytes([0x60 + i]) * 20 for i in range(16)]}
+    tok_bal = {slots[sender]: 10**12 + int(rng.integers(0, 10**9))}
+    segs, tok_segs = [], []
+    for _ in range(blocks):
+        for i in range(per_block):
+            for kind in ("eth", "tok"):
+                gas = 21_000 if kind == "eth" else gas_token
+                fee, tip = gas * price, gas * (price - base_fee)
+                value = 100 + i if kind == "eth" else 0
+                s_new = AccountState(nonce=s.nonce + 1,
+                                     balance=s.balance - value - fee)
+                if kind == "eth":
+                    to = bytes([0x50 + i % 32]) * 20
+                    r_old = recips.get(to)
+                    r_new = AccountState(
+                        nonce=0 if r_old is None else r_old.nonce,
+                        balance=value + (0 if r_old is None
+                                         else r_old.balance))
+                    recips[to] = r_new
+                    segs.append(ta.TxSeg(sender, to, s, s_new, r_old, r_new,
+                                         value, fee, tip,
+                                         r_created=r_old is None,
+                                         r_noop=False))
+                else:
+                    amount = 10 + i
+                    kf = slots[sender]
+                    kt = slots[bytes([0x60 + i % 16]) * 20]
+                    bf, bt = tok_bal[kf], tok_bal.get(kt, 0)
+                    tok_bal[kf], tok_bal[kt] = bf - amount, bt + amount
+                    tok_segs.append(TokSeg(amount, kf, bf, bf - amount, kt,
+                                           bt, bt + amount))
+                    segs.append(ta.TxSeg(sender, token, s, s_new, None, None,
+                                         0, fee, tip, False, True))
+                s = s_new
+                cb_new = AccountState(
+                    nonce=0, balance=tip + (0 if cb is None else cb.balance))
+                segs.append(ta.CbSeg(coinbase, cb, cb_new, tip,
+                                     created=cb is None, noop=False))
+                cb = cb_new
+    # PUSH0; loop: JUMPDEST PUSH1 1 ADD DUP1 PUSH1 249 GT PUSH1 1 JUMPI;
+    # PUSH0 SSTORE STOP: counts to 249 and stores it
+    code = bytes([0x5F, 0x5B, 0x60, 0x01, 0x01, 0x80, 0x60, 249, 0x11,
+                  0x60, 0x01, 0x57, 0x5F, 0x55, 0x00])
+    steps, snaps, _ = bv.run_trace(code, b"", sender, 0, lambda slot: 0,
+                                   address=bytes([0xB0]) * 20)
+    return VmBatch([], segs, tok_segs, [], [BcCall(steps, snaps)])
 
 
 def main_path(dev, rng, keys_future) -> dict:
+    """The VM-mode groth16 batch through `gpu_backend.prove_vm_stages`."""
     from ethrex_tpu_torch import kernels
     from ethrex_tpu_torch.prover import gpu_backend
     from ethrex_tpu_torch.prover import groth16_wrap
-    from ethrex_tpu_torch.stark import prover
 
     params = gpu_backend.PARAMS
-    (st_air, st_trace, st_pub), (bd_air, bd_trace, bd_pub) = make_jobs(rng)
+    t0 = time.perf_counter()
+    tree, r_pre, records, depth = state_batch(rng, num_keys=1002,
+                                              num_writes=1023)
+    batch = vm_batch(rng)
     encoded = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    log(f"[main] batch synthesized in {time.perf_counter() - t0:.1f} s: "
+        f"{len(records)} state writes (depth {depth}), {len(batch.segs)} "
+        f"transfer segments, {len(batch.tok_segs)} token segments, one "
+        f"generic call of {len(batch.bc_calls[0].steps)} steps")
 
     # the wrap keys come from the child (host setup); the wrap needs them
     t0 = time.perf_counter()
@@ -466,114 +704,191 @@ def main_path(dev, rng, keys_future) -> dict:
         f"{len(keys[0].constraints)} constraints, {keys[0].num_vars} "
         f"variables, domain {keys[2].domain_size}")
 
+    stats: dict = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
     t_main = time.perf_counter()
-    st_proof, st_stats = prover.prove_with_stats(st_air, st_trace, st_pub,
-                                                 params, device=dev)
-    bd_proof, bd_stats = prover.prove_with_stats(bd_air, bd_trace, bd_pub,
-                                                 params, device=dev)
+    out, airs, proofs = gpu_backend.prove_vm_stages(
+        records, r_pre, tree.root, depth, encoded, batch, "groth16",
+        device=dev, params=params, stats=stats)
     torch.cuda.synchronize()
-    inner_s = time.perf_counter() - t_main
-    inner_launches = dict(kernels.LAUNCHES)
-    fmt_stats: dict = {}
-    t_fmt = time.perf_counter()
-    formats = gpu_backend.prove_formats(
-        [st_air, bd_air], [st_proof, bd_proof], encoded, "groth16",
-        device=dev, params=params, stats=fmt_stats)
-    torch.cuda.synchronize()
-    formats_s = time.perf_counter() - t_fmt
     main_s = time.perf_counter() - t_main
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    agg_stats = fmt_stats["aggregate"]
+    inner_s = 0.0
+    for name in ("state", "transfer", "token", "bytecode0", "binding"):
+        st = stats[name]
+        inner_s += st["pub_s"] + st["trace_s"] + st["total_s"]
+        log(f"[main] {name} proof: trace {st['n']} x {st['width']} (N = "
+            f"{st['N']}, {st['num_constraints']} constraints), host public "
+            f"inputs {st['pub_s']:.1f} s, host trace generation "
+            f"{st['trace_s']:.1f} s, proof {st['total_s']:.3f} s, phases "
+            f"(s) {json.dumps(st['phase_s'])}")
+    agg_stats = stats["aggregate"]
     outer = agg_stats["outer"]
-    log(f"[main] state proof phases (s): {json.dumps(st_stats['phase_s'])} "
-        f"total {st_stats['total_s']:.3f}")
-    log(f"[main] binding proof phases (s): {json.dumps(bd_stats['phase_s'])} "
-        f"total {bd_stats['total_s']:.3f}")
-    log(f"[main] inner proofs {inner_s:.3f} s; launches "
-        f"{json.dumps(inner_launches)}")
     log(f"[main] outer FriVerifyAir: {agg_stats['items']} items, trace "
         f"{agg_stats['trace_shape']} (N = {outer['N']}, "
         f"{outer['num_constraints']} constraints), host trace generation "
         f"{agg_stats['trace_s']:.1f} s")
     log(f"[main] outer proof phases (s): {json.dumps(outer['phase_s'])} "
         f"total {outer['total_s']:.3f}")
-    log(f"[main] prove_formats(groth16) {formats_s:.3f} s: aggregate "
-        f"{agg_stats['trace_s'] + outer['total_s']:.3f} s, wrap "
-        f"{formats_s - agg_stats['trace_s'] - outer['total_s']:.3f} s")
-    log(f"[main] whole groth16 path {main_s:.3f} s; peak device memory "
-        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    agg_s = agg_stats["trace_s"] + outer["total_s"]
+    log(f"[main] inner proofs with their host public inputs and traces "
+        f"{inner_s:.3f} s; "
+        f"aggregate {agg_s:.3f} s; wrap "
+        f"{main_s - inner_s - agg_s:.3f} s")
+    log(f"[main] whole VM-mode groth16 path {main_s:.3f} s; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k != "merkle_batched_level"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    return dict(launches=launches, airs=[st_air, bd_air],
-                proofs=[st_proof, bd_proof], formats=formats,
-                state=st_stats, binding=bd_stats, outer=outer,
-                main_s=main_s, peak_bytes=peak, params=params)
+    return dict(launches=launches, airs=airs, out=out, proofs=proofs,
+                main_s=main_s, peak_bytes=peak, params=params, stats=stats)
+
+
+def check_inner(names, airs, full, params, tamper) -> None:
+    """The port's verifier accepts each inner proof and rejects a
+    tampered public input of those named in `tamper`."""
+    from ethrex_tpu_torch.stark import verifier
+
+    for name, air, proof in zip(names, airs, full, strict=True):
+        verifier.verify(air, proof, params)
+        if name not in tamper:
+            continue
+        bad = dict(proof)
+        bad["pub_inputs"] = list(proof["pub_inputs"])
+        bad["pub_inputs"][0] = (bad["pub_inputs"][0] + 1) % 2013265921
+        try:
+            verifier.verify(air, bad, params)
+        except verifier.VerificationError:
+            pass
+        else:
+            raise AssertionError(f"a tampered {name} public input verified")
+
+
+def check_formats(tag, airs, inners, aggregate_out, groth16_json, params,
+                  tamper_at: int) -> None:
+    """`verify_aggregated` accepts the aggregate of the path-stripped
+    `inners` and rejects a tampered FRI value of inner `tamper_at`;
+    `wrap_verify` accepts the wrap and rejects a wrong digest."""
+    from ethrex_tpu_torch.prover import groth16_wrap
+    from ethrex_tpu_torch.stark import aggregate, verifier
+
+    agg = aggregate.AggregateProof(
+        inners=inners, outer=aggregate_out["outer"],
+        max_depth=aggregate_out["max_depth"],
+        seg_periods=aggregate_out["seg_periods"])
+    t0 = time.perf_counter()
+    aggregate.verify_aggregated(airs, agg, params)
+    log(f"[check] {tag}: verify_aggregated accepted the {len(inners)}-proof "
+        f"aggregate ({time.perf_counter() - t0:.1f} s)")
+    bad_inner = json.loads(json.dumps(inners[tamper_at]))
+    val = bad_inner["fri"]["queries"][0][1]["values"][0]
+    val[0] = (val[0] + 1) % 2013265921
+    bad_agg = aggregate.AggregateProof(
+        inners=inners[:tamper_at] + [bad_inner] + inners[tamper_at + 1:],
+        outer=agg.outer, max_depth=agg.max_depth,
+        seg_periods=agg.seg_periods)
+    t0 = time.perf_counter()
+    try:
+        aggregate.verify_aggregated(airs, bad_agg, params)
+    except (verifier.VerificationError, aggregate.AggregationError):
+        pass
+    else:
+        raise AssertionError(f"{tag}: a tampered inner FRI value verified")
+    log(f"[check] {tag}: tampered FRI value of inner proof {tamper_at} "
+        f"rejected ({time.perf_counter() - t0:.1f} s)")
+
+    digest = [int(v) for v in agg.outer["pub_inputs"]]
+    wrapped = groth16_wrap.proof_from_json(groth16_json)
+    t0 = time.perf_counter()
+    if not groth16_wrap.wrap_verify(wrapped, digest):
+        raise AssertionError(f"{tag}: wrap_verify rejected the wrap proof")
+    wrong = list(digest)
+    wrong[0] = (wrong[0] + 1) % 2013265921
+    if groth16_wrap.wrap_verify(wrapped, wrong):
+        raise AssertionError(f"{tag}: wrap_verify accepted a wrong digest")
+    log(f"[check] {tag}: wrap proof verified, wrong digest rejected "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def check_main_path(result) -> None:
     """The verifiers accept what the main path made and reject tampers."""
-    from ethrex_tpu_torch.prover import groth16_wrap
-    from ethrex_tpu_torch.stark import aggregate, verifier
-
     params = result["params"]
-    (st_air, bd_air), (st_proof, bd_proof) = result["airs"], result["proofs"]
+    out = result["out"]
     t0 = time.perf_counter()
-    verifier.verify(st_air, st_proof, params)
-    verifier.verify(bd_air, bd_proof, params)
-    bad = dict(st_proof)
-    bad["pub_inputs"] = list(st_proof["pub_inputs"])
-    bad["pub_inputs"][8] = (bad["pub_inputs"][8] + 1) % 2013265921
-    try:
-        verifier.verify(st_air, bad, params)
-    except verifier.VerificationError:
-        pass
-    else:
-        raise AssertionError("a tampered public input verified")
-    log(f"[check] both inner proofs verified, tamper rejected "
+    check_inner(["state", "binding", "transfer", "token", "bytecode"],
+                result["airs"], result["proofs"], params,
+                tamper=("state", "transfer", "token", "bytecode"))
+    log(f"[check] the five inner proofs verified, tampered public inputs "
+        f"of the state, transfer, token and bytecode proofs rejected "
         f"({time.perf_counter() - t0:.1f} s)")
+    # the aggregate carries them path-stripped, under the reference's keys
+    inners = [out["state_proof"], out["proof"], out["vm_proof"],
+              out["tok_proof"]] + out["bc_proofs"]
+    check_formats("VM path", result["airs"], inners, out["aggregate"],
+                  out["groth16"], params, tamper_at=2)
 
-    fm = result["formats"]
-    agg = aggregate.AggregateProof(
-        inners=fm["inner"], outer=fm["aggregate"]["outer"],
-        max_depth=fm["aggregate"]["max_depth"],
-        seg_periods=fm["aggregate"]["seg_periods"])
-    t0 = time.perf_counter()
-    aggregate.verify_aggregated(result["airs"], agg, params)
-    log(f"[check] verify_aggregated accepted the aggregate "
-        f"({time.perf_counter() - t0:.1f} s)")
-    bad_inner = json.loads(json.dumps(agg.inners[0]))
-    val = bad_inner["fri"]["queries"][0][1]["values"][0]
-    val[0] = (val[0] + 1) % 2013265921
-    bad_agg = aggregate.AggregateProof(
-        inners=[bad_inner] + agg.inners[1:], outer=agg.outer,
-        max_depth=agg.max_depth, seg_periods=agg.seg_periods)
-    t0 = time.perf_counter()
-    try:
-        aggregate.verify_aggregated(result["airs"], bad_agg, params)
-    except (verifier.VerificationError, aggregate.AggregationError):
-        pass
-    else:
-        raise AssertionError("a tampered inner FRI value verified")
-    log(f"[check] tampered inner FRI value rejected "
-        f"({time.perf_counter() - t0:.1f} s)")
 
-    digest = [int(v) for v in agg.outer["pub_inputs"]]
-    wrapped = groth16_wrap.proof_from_json(fm["groth16"])
+def two_proof_path(dev, rng) -> dict:
+    """The earlier slice's path, still driven: a state proof and a
+    512-limb (64-chunk) binding proof, then `gpu_backend.prove_formats(...,
+    "groth16")` over the two, with the launch counts zeroed just before
+    and read just after, then checked by the verifiers.  Its state proof
+    is cut from 1,002 keys to 126 (1,023 writes to 127: n = 2^16 x 115,
+    so the outer proof is 2^20 x 90) to keep the smoke short; the VM path
+    proves the full-size state."""
+    from ethrex_tpu_torch import kernels
+    from ethrex_tpu_torch.prover import gpu_backend
+    from ethrex_tpu_torch.stark import prover
+
+    params = gpu_backend.PARAMS
     t0 = time.perf_counter()
-    if not groth16_wrap.wrap_verify(wrapped, digest):
-        raise AssertionError("wrap_verify rejected the wrap proof")
-    wrong = list(digest)
-    wrong[0] = (wrong[0] + 1) % 2013265921
-    if groth16_wrap.wrap_verify(wrapped, wrong):
-        raise AssertionError("wrap_verify accepted a wrong digest")
-    log(f"[check] wrap proof verified, wrong digest rejected "
-        f"({time.perf_counter() - t0:.1f} s)")
+    st_air, st_trace, st_pub = state_job(rng, num_keys=126, num_writes=127)
+    bd_air, bd_trace, bd_pub = binding_job(rng, limbs=512)
+    encoded = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    log(f"[two-proof] host trace generation {time.perf_counter() - t0:.1f} "
+        f"s: state {st_trace.shape}, binding {bd_trace.shape}")
+    if bd_trace.shape[0] != 2048:
+        raise AssertionError(f"binding trace shape {bd_trace.shape}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t_path = time.perf_counter()
+    st_proof = prover.prove(st_air, st_trace, st_pub, params, device=dev)
+    bd_proof = prover.prove(bd_air, bd_trace, bd_pub, params, device=dev)
+    fmt_stats: dict = {}
+    formats = gpu_backend.prove_formats(
+        [st_air, bd_air], [st_proof, bd_proof], encoded, "groth16",
+        device=dev, params=params, stats=fmt_stats)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    agg_stats = fmt_stats["aggregate"]
+    log(f"[two-proof] groth16 path {path_s:.3f} s (outer FriVerifyAir "
+        f"{agg_stats['trace_shape']}, {agg_stats['items']} items, host "
+        f"trace {agg_stats['trace_s']:.1f} s, proof "
+        f"{agg_stats['outer']['total_s']:.3f} s); peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k != "merkle_batched_level"]
+    if missing:
+        raise AssertionError(f"kernels not launched on the two-proof path: "
+                             f"{missing}")
+    t0 = time.perf_counter()
+    check_inner(["state", "binding"], [st_air, bd_air], [st_proof, bd_proof],
+                params, tamper=("state",))
+    log(f"[check] two-proof path: both inner proofs verified, tampered "
+        f"state public input rejected ({time.perf_counter() - t0:.1f} s)")
+    check_formats("two-proof path", [st_air, bd_air], formats["inner"],
+                  formats["aggregate"], formats["groth16"], params,
+                  tamper_at=0)
+    return dict(launches=launches, path_s=path_s, peak_bytes=peak)
 
 
 def small_cross_check(dev, rng) -> None:
@@ -595,6 +910,57 @@ def small_cross_check(dev, rng) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def fused_step(dev) -> dict:
+    """The second entry point: `parallel.core.build_prove_step` at the
+    reference's core-bench shape (log_n 15, width 64), held equal to the
+    same step run with the plain versions on the CPU, then at log_n 20;
+    each driven with the launch counts zeroed just before and read just
+    after, and timed (CUDA events, median of 3 after a warm-up)."""
+    from ethrex_tpu_torch import kernels
+    from ethrex_tpu_torch.parallel.core import build_prove_step
+
+    rows = {}
+    launches = {}
+    for log_n in (15, 20):
+        step, args = build_prove_step(log_n, 64, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        troot, roots, cw = step(*args)
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+        need = ("ntt", "poseidon2_hash_leaves", "poseidon2_compress_level",
+                "mod_matmul", "fri_fold", "deep_compose",
+                "merkle_batched_level", "ext_poly_eval")
+        missing = [k for k in need if got[k] <= 0]
+        if missing:
+            raise AssertionError(f"fused step (log_n {log_n}) did not "
+                                 f"launch {missing}")
+        if cw.shape != (32, 4) or len(roots) != log_n + 2 - 5:
+            raise AssertionError("fused step: unexpected output shapes")
+        if log_n == 15:
+            t0 = time.perf_counter()
+            step_c, args_c = build_prove_step(log_n, 64, device="cpu")
+            want = step_c(*args_c)
+            cpu_s = time.perf_counter() - t0
+            if not (torch.equal(troot.cpu(), want[0])
+                    and all(torch.equal(a.cpu(), b)
+                            for a, b in zip(roots, want[1]))
+                    and torch.equal(cw.cpu(), want[2])):
+                raise AssertionError("fused step: card and CPU differ")
+            log(f"[fused] log_n 15 x 64: card == plain versions on the CPU "
+                f"(troot, {len(roots)} FRI roots, final codeword; CPU "
+                f"{cpu_s:.1f} s)")
+        ms = cuda_ms(lambda: step(*args), 3)
+        rows[log_n] = dict(ms=ms, launches=got)
+        log(f"[fused] log_n {log_n} x 64 (LDE 2^{log_n + 2}): {ms:.3f} ms "
+            f"per step; launches {json.dumps(got)}")
+        del step, args
+        torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches)
+
+
 def build_all() -> None:
     """Every kernel source of the path, one nvcc each, all at once."""
     import threading
@@ -604,7 +970,7 @@ def build_all() -> None:
 
     t0 = time.perf_counter()
     texts = [air_codegen.cuda_source(air_codegen.record(air))[0]
-             for air, _ in path_airs().values()]
+             for air, _, _ in path_airs().values()]
     errors = []
 
     def static():
@@ -657,12 +1023,16 @@ def main() -> int:
         rows = check_kernels(dev, rng)
         rows["air_constraints"] = check_air_kernels(dev, rng)
         rows["batch_inv"] = check_batch_inv(dev, rng)
+        rows.update(check_ext_glue(dev, rng))
+        rows["merkle_batched_level"] = check_batched_roots(dev, rng, 20)
         result = main_path(dev, rng, keys_future)
+    fused = fused_step(dev)
     check_main_path(result)
+    two = two_proof_path(dev, rng)
     from ethrex_tpu_torch.prover import groth16_wrap
 
     r1cs, layout, pk, _vk = groth16_wrap.wrap_keys()
-    digest = [int(v) for v in result["formats"]["aggregate"]["outer"][
+    digest = [int(v) for v in result["out"]["aggregate"]["outer"][
         "pub_inputs"]]
     z = groth16_wrap.wrap_witness(digest, r1cs, layout)
     rows.update(check_msm(dev, pk, (r1cs, z), 1 + r1cs.num_pub))
@@ -672,16 +1042,23 @@ def main() -> int:
     out = []
     for name, src in kernels.KERNELS.items():
         row = rows[name]
+        vm_n = result["launches"][name]
+        fused_n = fused["launches"].get(name, 0)
+        two_n = two["launches"][name]
         out.append({
             "name": name, "route": "cuda",
             "source": f"ethrex_tpu_torch/{src}",
             "replaces": REPLACES[name],
-            "launches": result["launches"][name],
+            "launches": vm_n + fused_n + two_n,
+            "launches_by_path": {"vm_groth16": vm_n, "fused_step": fused_n,
+                                 "two_proof_groth16": two_n},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"],
             **({"per_air": row["per_air"]} if "per_air" in row else {}),
+            **({"at_state_shape": row["at_state_shape"]}
+               if "at_state_shape" in row else {}),
         })
     log(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
@@ -700,6 +1077,10 @@ REPLACES = {
     "batch_inv": "ethrex_tpu/ops/babybear.py:147",
     "bn254_msm_g1": "ethrex_tpu/ops/bn254_msm.py:308",
     "bn254_msm_g2": "ethrex_tpu/ops/bn254_msm.py:308",
+    "deep_compose": "ethrex_tpu/stark/prover.py:565",
+    "quotient_combine": "ethrex_tpu/stark/prover.py:540",
+    "merkle_batched_level": "ethrex_tpu/ops/merkle.py:60",
+    "ext_poly_eval": "ethrex_tpu/ops/ext.py:175",
 }
 
 

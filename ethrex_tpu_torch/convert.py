@@ -18,8 +18,13 @@ import numpy as np
 import torch
 
 from .crypto import bn254
+from .guest import bytecode_vm as bv
+from .guest import transfer_log as tl
+from .models import bytecode_air as bca
 from .models import poseidon2_air as pair
 from .models import state_update_air as sua
+from .models import token_air as tka
+from .models import transfer_air as ta
 from .ops import babybear as bb
 from .stark.aggregate import AggregateProof
 from .stark.prover import StarkParams
@@ -44,13 +49,17 @@ _AIRS = {
         int(spec["depth"]), seg_periods=int(spec.get("seg_periods", 16))),
     "Poseidon2SpongeAir": lambda spec: pair.Poseidon2SpongeAir(
         int(spec["num_chunks"])),
+    "TransferAir": lambda spec: ta.TransferAir(),
+    "TokenAir": lambda spec: tka.TokenAir(),
+    "BytecodeAir": lambda spec: bca.BytecodeAir(),
 }
 
 
 def air_from_spec(spec: dict):
     """The port's AIR for a JAX AIR's structure, e.g.
-    {"air": "StateUpdateAir", "depth": 2, "seg_periods": 8} or
-    {"air": "Poseidon2SpongeAir", "num_chunks": 3}."""
+    {"air": "StateUpdateAir", "depth": 2, "seg_periods": 8},
+    {"air": "Poseidon2SpongeAir", "num_chunks": 3} or {"air":
+    "TransferAir"} (TokenAir and BytecodeAir take no parameters either)."""
     name = spec["air"]
     if name not in _AIRS:
         raise ValueError(f"no port of AIR {name!r} (have {sorted(_AIRS)})")
@@ -64,6 +73,58 @@ def stark_params(fields: dict) -> StarkParams:
     if unknown:
         raise ValueError(f"unknown StarkParams fields {sorted(unknown)}")
     return StarkParams(**{k: int(v) for k, v in fields.items()})
+
+
+# ---------------------------------------------------------------------------
+# VM-mode segments
+# ---------------------------------------------------------------------------
+
+def _copy_attrs(cls, seg):
+    """A `cls` instance holding `seg`'s attributes (the TxSeg / CbSeg
+    constructors take account states; their objects hold limbs)."""
+    out = cls.__new__(cls)
+    out.__dict__.update({k: (list(v) if isinstance(v, list) else v)
+                         for k, v in vars(seg).items()})
+    return out
+
+
+def vm_seg(seg):
+    """A TxSeg or CbSeg of either package -> the port's."""
+    cls = {"tx": ta.TxSeg, "cb": ta.CbSeg}[seg.kind]
+    return _copy_attrs(cls, seg)
+
+
+def tok_seg(seg):
+    """A TokSeg of either package -> the port's."""
+    return tl.TokSeg(**{f.name: getattr(seg, f.name)
+                        for f in dataclasses.fields(tl.TokSeg)})
+
+
+def step_rec(step):
+    """A bytecode StepRec of either package -> the port's."""
+    return bv.StepRec(**{f.name: getattr(step, f.name)
+                         for f in dataclasses.fields(bv.StepRec)})
+
+
+def snapshot(snap):
+    """A bytecode Snapshot of either package -> the port's."""
+    return bv.Snapshot(stack=tuple(snap.stack), mem=tuple(snap.mem))
+
+
+def bc_call(call):
+    """A BcCall of either package -> the port's."""
+    return tl.BcCall(steps=[step_rec(s) for s in call.steps],
+                     snaps=[snapshot(s) for s in call.snaps])
+
+
+def vm_batch(batch):
+    """A VmBatch of either package -> the port's (blocks_log and the
+    block metadata carried as they are)."""
+    return tl.VmBatch(blocks_log=batch.blocks_log,
+                      segs=[vm_seg(s) for s in batch.segs],
+                      tok_segs=[tok_seg(s) for s in batch.tok_segs],
+                      blocks=list(batch.blocks),
+                      bc_calls=[bc_call(c) for c in batch.bc_calls])
 
 
 # ---------------------------------------------------------------------------

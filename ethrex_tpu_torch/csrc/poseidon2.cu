@@ -7,6 +7,11 @@
 // which the wrapper (ethrex_tpu_torch/ops/merkle.py) drives one
 // p2_compress_level launch per tree level, keeping every level.
 //
+// K10 (p2_batched_level) is one level of ethrex_tpu/ops/merkle.py:60
+// `batched_roots`: every tree of a concatenated forest that is still above
+// one node compresses its pairs, and finished roots are copied through, in
+// one launch per global level.
+//
 // Design: one thread per leaf row (or per output node) holds the 16-lane
 // state in registers for the whole permutation; the round constants and
 // the internal diagonal mu live in __constant__ memory, read uniformly by
@@ -114,11 +119,10 @@ __global__ void k_hash_leaves(const uint32_t* __restrict__ in,
   o[1] = make_uint4(s[4], s[5], s[6], s[7]);
 }
 
-__global__ void k_compress_level(const uint32_t* __restrict__ level,
-                                 uint32_t* __restrict__ out, long long m) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const uint4* src = reinterpret_cast<const uint4*>(level + i * 16);
+// two adjacent digests at src (16 words) -> their parent at dst (8 words)
+__device__ __forceinline__ void compress_pair(const uint32_t* __restrict__ pair,
+                                              uint32_t* __restrict__ dst) {
+  const uint4* src = reinterpret_cast<const uint4*>(pair);
   uint32_t s[16];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -132,11 +136,47 @@ __global__ void k_compress_level(const uint32_t* __restrict__ level,
 #pragma unroll
   for (int j = 0; j < 8; ++j) left[j] = s[j];
   permute(s);
-  uint4* o = reinterpret_cast<uint4*>(out + i * 8);
+  uint4* o = reinterpret_cast<uint4*>(dst);
   o[0] = make_uint4(bb::add(s[0], left[0]), bb::add(s[1], left[1]),
                     bb::add(s[2], left[2]), bb::add(s[3], left[3]));
   o[1] = make_uint4(bb::add(s[4], left[4]), bb::add(s[5], left[5]),
                     bb::add(s[6], left[6]), bb::add(s[7], left[7]));
+}
+
+__global__ void k_compress_level(const uint32_t* __restrict__ level,
+                                 uint32_t* __restrict__ out, long long m) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  compress_pair(level + i * 16, out + i * 8);
+}
+
+// One level of a forest.  plan holds, for T trees, out_start[0..T] (the
+// last entry is the level's output count), in_start[0..T) and
+// active[0..T): output row r of tree t (out_start[t] <= r <
+// out_start[t+1]) is the parent of input rows in_start[t] + 2 (r -
+// out_start[t]) and the next one when the tree is active, else a copy of
+// its root at in_start[t].
+__global__ void k_batched_level(const uint32_t* __restrict__ in,
+                                uint32_t* __restrict__ out,
+                                const long long* __restrict__ plan, int T,
+                                long long m) {
+  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= m) return;
+  int lo = 0, hi = T - 1;  // the last t with out_start[t] <= r
+  while (lo < hi) {
+    int mid = (lo + hi + 1) / 2;
+    if (plan[mid] <= r) lo = mid; else hi = mid - 1;
+  }
+  long long off = r - plan[lo];
+  long long src = plan[T + 1 + lo];
+  if (plan[2 * T + 1 + lo]) {
+    compress_pair(in + (src + 2 * off) * 8, out + r * 8);
+  } else {
+    const uint4* s = reinterpret_cast<const uint4*>(in + src * 8);
+    uint4* o = reinterpret_cast<uint4*>(out + r * 8);
+    o[0] = s[0];
+    o[1] = s[1];
+  }
 }
 
 }  // namespace
@@ -169,6 +209,17 @@ int p2_compress_level(const void* level, void* out, long long m,
   if (m > 0) {
     k_compress_level<<<(unsigned)((m + 127) / 128), 128, 0, stream>>>(
         (const uint32_t*)level, (uint32_t*)out, m);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K10: in (rows, 8) digests -> out (m, 8) by the plan above
+int p2_batched_level(const void* in, void* out, const void* plan, int trees,
+                     long long m, cudaStream_t stream) {
+  if (m > 0) {
+    k_batched_level<<<(unsigned)((m + 127) / 128), 128, 0, stream>>>(
+        (const uint32_t*)in, (uint32_t*)out, (const long long*)plan, trees,
+        m);
   }
   return (int)cudaGetLastError();
 }

@@ -46,6 +46,10 @@ KERNELS = {
     "batch_inv": "csrc/batch_inv.cu",
     "bn254_msm_g1": "csrc/bn254_msm.cu",
     "bn254_msm_g2": "csrc/bn254_msm.cu",
+    "deep_compose": "csrc/deep_compose.cu",
+    "quotient_combine": "csrc/quotient_combine.cu",
+    "merkle_batched_level": "csrc/poseidon2.cu",
+    "ext_poly_eval": "csrc/ext_poly_eval.cu",
 }
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -147,6 +151,11 @@ _SIGNATURES = {
     "fri_fold": [_P, _P, _P, _P, _P, _L, _P],
     "batch_inv": [_P, _P, _L, _I, _P],
     "bn254_msm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "deep_compose": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "quotient_combine": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "p2_batched_level": [_P, _P, _P, _I, _L, _P],
+    "ext_powers_table": [_P, _P, _P, _L, _I, _P],
+    "ext_poly_eval": [_P, _L, _L, _L, _P, _P, _I, _L, _I, _I, _P, _P, _P],
 }
 
 

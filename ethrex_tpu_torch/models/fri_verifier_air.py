@@ -62,7 +62,8 @@ from ..ops import babybear as bb
 from ..ops import ext as ext_ops
 from ..ops import poseidon2 as p2
 from ..stark.air import Air
-from .poseidon2_air import (PERIOD, ROUNDS, Poseidon2Air,
+from .poseidon2_air import (PERIOD, ROUNDS, Poseidon2Air, pad_rows,
+                            perm_rows_np, perm_rows_py,
                             _external_linear_generic)
 
 M_STATE, T_STATE = 0, 16
@@ -351,110 +352,6 @@ def segment_count(num_items: int) -> int:
     return 1 << (need - 1).bit_length()
 
 
-_P = bb.P
-_EXT_RC_INT = [[int(c) for c in row] for row in p2.EXT_RC]
-_INT_RC_INT = [int(c) for c in p2.INT_RC]
-_MU_INT = [int(m) for m in p2.DIAG_MU]
-
-
-def _m4_py(a, b, c, d):
-    t0 = a + b
-    t1 = c + d
-    t2 = 2 * b + t1
-    t3 = 2 * d + t0
-    t4 = 4 * t1 + t3
-    t5 = 4 * t0 + t2
-    return t3 + t5, t5, t2 + t4, t4
-
-
-def _ext_linear_py(s):
-    """M_E on 16 ints (any size; reduced mod p on the way out)."""
-    b0 = _m4_py(s[0], s[1], s[2], s[3])
-    b1 = _m4_py(s[4], s[5], s[6], s[7])
-    b2 = _m4_py(s[8], s[9], s[10], s[11])
-    b3 = _m4_py(s[12], s[13], s[14], s[15])
-    sums = [b0[j] + b1[j] + b2[j] + b3[j] for j in range(4)]
-    p = _P
-    return [(b[j] + sums[j]) % p for b in (b0, b1, b2, b3) for j in range(4)]
-
-
-def _sbox_py(x):
-    p = _P
-    x2 = x * x % p
-    x4 = x2 * x2 % p
-    return x4 * x2 % p * x % p
-
-
-def _perm_rows_py(state) -> list:
-    """The 22 round states of Poseidon2 on canonical ints (rows 0..21 of
-    poseidon2_air.generate_trace); row 21 is the permutation's output."""
-    p = _P
-    s = _ext_linear_py(state)
-    rows = [s]
-    for r in range(p2._HALF_F):
-        rc = _EXT_RC_INT[r]
-        s = _ext_linear_py([_sbox_py((s[i] + rc[i]) % p) for i in range(16)])
-        rows.append(s)
-    for r in range(p2.ROUNDS_P):
-        s = list(s)
-        s[0] = _sbox_py((s[0] + _INT_RC_INT[r]) % p)
-        tot = sum(s)
-        s = [(tot + m * x) % p for x, m in zip(s, _MU_INT)]
-        rows.append(s)
-    for r in range(p2._HALF_F, p2.ROUNDS_F):
-        rc = _EXT_RC_INT[r]
-        s = _ext_linear_py([_sbox_py((s[i] + rc[i]) % p) for i in range(16)])
-        rows.append(s)
-    return rows
-
-
-def _m4_np(x0, x1, x2, x3):
-    t0 = x0 + x1
-    t1 = x2 + x3
-    t2 = 2 * x1 + t1
-    t3 = 2 * x3 + t0
-    t4 = 4 * t1 + t3
-    t5 = 4 * t0 + t2
-    return [t3 + t5, t5, t2 + t4, t4]
-
-
-def _ext_linear_np(s: np.ndarray) -> np.ndarray:
-    blocks = [_m4_np(*(s[:, i + j] for j in range(4))) for i in range(0, 16, 4)]
-    sums = [blocks[0][j] + blocks[1][j] + blocks[2][j] + blocks[3][j]
-            for j in range(4)]
-    return np.stack([(b[j] + sums[j]) % _P for b in blocks for j in range(4)],
-                    axis=1)
-
-
-def _sbox_np(x: np.ndarray) -> np.ndarray:
-    x2 = x * x % _P
-    x4 = x2 * x2 % _P
-    return x4 * x2 % _P * x % _P
-
-
-_EXT_RC_NP = np.asarray(p2.EXT_RC, dtype=np.uint64)
-_MU_NP = np.asarray(p2.DIAG_MU, dtype=np.uint64)
-
-
-def _perm_rows_np(states: np.ndarray) -> np.ndarray:
-    """Batched `_perm_rows_py`: (B, 16) canonical -> (B, 22, 16) uint64."""
-    s = _ext_linear_np(states.astype(np.uint64))
-    rows = [s]
-    for r in range(p2._HALF_F):
-        s = _ext_linear_np(_sbox_np((s + _EXT_RC_NP[r]) % _P))
-        rows.append(s)
-    for r in range(p2.ROUNDS_P):
-        s = s.copy()
-        s[:, 0] = _sbox_np((s[:, 0] + np.uint64(_INT_RC_INT[r])) % _P)
-        tot = s.sum(axis=1, keepdims=True)
-        s = (tot + _MU_NP * s) % _P
-        rows.append(s)
-    for r in range(p2._HALF_F, p2.ROUNDS_F):
-        s = _ext_linear_np(_sbox_np((s + _EXT_RC_NP[r]) % _P))
-        rows.append(s)
-    return np.stack(rows, axis=1)
-
-
 def transcript_digest(messages: list[list[int]], seg_periods: int,
                       segments: int | None = None) -> list[int]:
     """The public digest: sponge over every segment's 32 limbs under the
@@ -469,16 +366,8 @@ def transcript_digest(messages: list[list[int]], seg_periods: int,
             if j < 4:
                 state = [(state[i] + chunks[j][i]) % bb.P if i < 8
                          else state[i] for i in range(16)]
-            state = _perm_rows_py(state)[ROUNDS]
+            state = perm_rows_py(state)[ROUNDS]
     return state[:8]
-
-
-def _pad_rows(rows: np.ndarray) -> np.ndarray:
-    """(..., 22, 16) round states -> (..., 32, 16): rows 22..31 repeat the
-    output row, as poseidon2_air.generate_trace pads a period."""
-    tail = np.repeat(rows[..., ROUNDS:ROUNDS + 1, :], PERIOD - ROUNDS - 1,
-                     axis=-2)
-    return np.concatenate([rows, tail], axis=-2)
 
 
 def generate_fri_verify_trace(items: list[dict], max_depth: int,
@@ -527,8 +416,8 @@ def generate_fri_verify_trace(items: list[dict], max_depth: int,
     for j in range(S):
         if j >= 1:
             dig[:, j] = cur_dig
-        rows = _perm_rows_np(m_in)                   # (G, 22, 16)
-        lane_m[:, j] = _pad_rows(rows)
+        rows = perm_rows_np(m_in)                   # (G, 22, 16)
+        lane_m[:, j] = pad_rows(rows)
         end = rows[:, ROUNDS]
         if j == S - 1:
             break
@@ -599,10 +488,10 @@ def generate_fri_verify_trace(items: list[dict], max_depth: int,
         for j in range(S):
             add = ck[j] if j < 4 else zero8
             t_in = [(state[i] + add[i]) % bb.P for i in range(8)] + state[8:]
-            rows = _perm_rows_py(t_in)
+            rows = perm_rows_py(t_in)
             seg_rows.append(rows)
             state = rows[ROUNDS]
-        lane_t[k] = _pad_rows(np.asarray(seg_rows, dtype=np.uint32))
+        lane_t[k] = pad_rows(np.asarray(seg_rows, dtype=np.uint32))
 
     # ---- assemble ------------------------------------------------------
     tr = np.empty((G, S, PERIOD, WIDTH), dtype=np.uint32)

@@ -7,10 +7,12 @@ of `_build_phases`, :458-583).  Pipeline per proof:
   2. quotient  alpha <- transcript; AIR constraints over the LDE domain
                (generated kernel K6, stark/air_codegen.py), divisor
                inverses (K7, once per shape), alpha-combination (K3),
-               coset iNTT and chunk re-evaluation (K1), Merkle (K2)
+               divisors and boundary terms (K9), coset iNTT and chunk
+               re-evaluation (K1), Merkle (K2)
   3. open      zeta <- transcript; trace and quotient at zeta, zeta*g
-               (K1 iNTT, K3 evaluation)
-  4. deep      gamma <- transcript; the DEEP composition codeword (K3)
+               (K1 iNTT, K11 power tables, K3 and K11 evaluation)
+  4. deep      gamma <- transcript; the DEEP composition codeword (K3,
+               then K8)
   5. fri       fold (K4) + Merkle (K2) per layer, query openings
 
 The transcript order, the host query openings and the proof dict (keys and
@@ -157,14 +159,11 @@ def phase_quotient(air: Air, tb: _Tables, lde_cols, alpha, bound_vals,
     # matmul (N, K) @ (K, 4), reading the (K, N) stack in place
     acc = bb.mod_matmul(cons.T, apow[:K])                          # (N, 4)
     del cons
-    inv_xn1 = tb.inv_stack[:B].repeat(N // B)
-    q_acc = ext.scalar_mul(acc, bb.mont_mul(tb.x_minus_glast, inv_xn1))
-    base_off = B + N
-    for j, (r, c) in enumerate(tb.bounds_struct):
-        diff = bb.sub(lde_cols[c], bound_vals[j])
-        inv_x = tb.inv_stack[base_off + j * N: base_off + (j + 1) * N]
-        q_acc = ext.add(q_acc, bb.mont_mul(
-            bb.mont_mul(diff, inv_x)[:, None], apow[K + j][None, :]))
+    # the divisors and the boundary terms (kernel K9)
+    q_acc = ext.quotient_combine(
+        acc, tb.x_minus_glast, tb.inv_stack, lde_cols,
+        [c for (_, c) in tb.bounds_struct], bound_vals, apow[K:K + nb], B)
+    del acc
     qc_t = ntt.coset_intt(q_acc.T.contiguous(), shift=shift)      # (4, N)
     chunks_t = qc_t.reshape(4, B, n).permute(1, 0, 2)              # (B, 4, n)
     q_lde = ntt.coset_evals_from_coeffs(chunks_t, N, shift=shift)  # (B, 4, N)
@@ -185,21 +184,16 @@ def phase_deep(tb: _Tables, lde_cols, q_lde, t_z, t_zg, q_z, zeta, zeta_g,
     device = lde_cols.device
     w = lde_cols.shape[0]
     B = q_lde.shape[0]
-    zeta_dev = ext.to_device(zeta, device)
-    zeta_g_dev = ext.to_device(zeta_g, device)
-    inv_xz = ext.inv_x_minus_zeta(tb.pts_m, zeta_dev)
-    inv_xzg = ext.inv_x_minus_zeta(tb.pts_m, zeta_g_dev)
     gpow = ext.ext_powers(gamma, 2 * w + B, device)
     lde_rows = lde_cols.T
-    s1 = ext.sub(bb.mod_matmul(lde_rows, gpow[:w]),
-                 bb.sum_mod(ext.mul(t_z, gpow[:w]), dim=0)[None])
-    s2 = ext.sub(bb.mod_matmul(lde_rows, gpow[w:2 * w]),
-                 bb.sum_mod(ext.mul(t_zg, gpow[w:2 * w]), dim=0)[None])
-    q_ext = q_lde.permute(0, 2, 1)                                 # (B, N, 4)
-    d3 = ext.sub(q_ext, q_z[:, None])
-    s3 = bb.sum_mod(ext.mul(d3, gpow[2 * w:, None]), dim=0)
-    del d3
-    return ext.add(ext.mul(ext.add(s1, s3), inv_xz), ext.mul(s2, inv_xzg))
+    # the two column combinations (K3), then 1/(x - zeta), 1/(x - zeta g),
+    # the quotient chunks and the sum in one pass (K8)
+    s1 = bb.mod_matmul(lde_rows, gpow[:w])
+    s2 = bb.mod_matmul(lde_rows, gpow[w:2 * w])
+    return ext.deep_compose(
+        tb.pts_m, [(zeta, s1, t_z, gpow[:w]), (zeta_g, s2, t_zg,
+                                               gpow[w:2 * w])],
+        q_lde=q_lde, q_z=q_z, gq=gpow[2 * w:])
 
 
 # ---------------------------------------------------------------------------

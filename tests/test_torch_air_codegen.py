@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from ethrex_tpu_torch.models import bytecode_air as bca
 from ethrex_tpu_torch.models import fri_verifier_air as fva
 from ethrex_tpu_torch.models import poseidon2_air as pair
 from ethrex_tpu_torch.models import state_update_air as sua
+from ethrex_tpu_torch.models import token_air as tka
+from ethrex_tpu_torch.models import transfer_air as ta
 from ethrex_tpu_torch.ops import babybear as bb
 from ethrex_tpu_torch.stark import air_codegen as cg
 from ethrex_tpu_torch.stark.air import DeviceOps
@@ -24,6 +27,9 @@ AIRS = {
     "StateUpdateAir": lambda: sua.StateUpdateAir(2, seg_periods=8),
     "Poseidon2SpongeAir": lambda: pair.Poseidon2SpongeAir(3),
     "FriVerifyAir": lambda: fva.FriVerifyAir(7, 16),
+    "TransferAir": ta.TransferAir,
+    "TokenAir": tka.TokenAir,
+    "BytecodeAir": bca.BytecodeAir,
 }
 
 

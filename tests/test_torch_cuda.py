@@ -1,7 +1,7 @@
-"""The CUDA kernels K1-K7 against their plain PyTorch versions on the card,
-at small and ragged shapes (chip_smoke.py covers the full-size ones), and
-a small aggregate proof made on the card against the same proof made on
-the CPU.
+"""The CUDA kernels K1-K11 against their plain PyTorch versions on the
+card, at small and ragged shapes (chip_smoke.py covers the full-size
+ones); a small aggregate proof, a small VM-mode batch's stage proofs and
+the fused prove step made on the card against the same made on the CPU.
 
 Bar: bit-equality (torch.equal); all arithmetic is exact.  Every test
 skips, saying so, when torch.cuda.is_available() is False; a kernel that
@@ -16,7 +16,10 @@ import torch
 
 from ethrex_tpu_torch import kernels
 from ethrex_tpu_torch.crypto import bn254
+from ethrex_tpu_torch.models import bytecode_air as bca
 from ethrex_tpu_torch.models import fri_verifier_air as fva
+from ethrex_tpu_torch.models import token_air as tka
+from ethrex_tpu_torch.models import transfer_air as ta
 from ethrex_tpu_torch.models import poseidon2_air as pair
 from ethrex_tpu_torch.models import state_update_air as sua
 from ethrex_tpu_torch.ops import babybear as bb
@@ -124,7 +127,8 @@ def test_inv_x_minus_zeta_on_the_card_equals_cpu(dev):
 
 @pytest.mark.parametrize("air", [
     sua.StateUpdateAir(2, seg_periods=8), pair.Poseidon2SpongeAir(3),
-    fva.FriVerifyAir(7, 16)], ids=lambda a: type(a).__name__)
+    fva.FriVerifyAir(7, 16), ta.TransferAir(), tka.TokenAir(),
+    bca.BytecodeAir()], ids=lambda a: type(a).__name__)
 def test_air_kernel_equals_plain(dev, air):
     N, B = 1 << 12, 8
     lde = _field(air.width, (air.width, N), dev)
@@ -210,3 +214,125 @@ def test_small_aggregate_on_the_card_equals_cpu(dev):
     on_cpu = aggregate.aggregate(airs, proofs, params, outer, device="cpu")
     assert on_card == on_cpu
     assert aggregate.verify_aggregated(airs, on_card, params, outer)
+
+
+def _ext_point(seed):
+    rng = np.random.default_rng(seed)
+    return tuple(int(v) for v in rng.integers(0, bb.P, 4))
+
+
+@pytest.mark.parametrize("n", [1, 5, 128, 129, 4096, 70000])
+def test_powers_table_kernel_equals_plain(dev, n):
+    z = _ext_point(n)
+    got = ext.powers_table(z, n, dev)
+    assert torch.equal(got, ext.ext_powers_blocked(z, n, device=dev))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 3), (8, 1000), (4, 1 << 15)])
+def test_ext_poly_eval_kernel_equals_plain(dev, rows, n):
+    # the prover's chunks: a (rows, n, 4) view of a (rows, 4, n) block
+    c = _field(rows + n, (rows, 4, n), dev).permute(0, 2, 1)
+    z = _ext_point(rows)
+    got = ext.eval_ext_poly_at_ext(c, z)
+    assert torch.equal(got, ext.eval_ext_poly_at_ext_plain(c, z))
+    assert torch.equal(ext.eval_ext_poly_at_ext(c.contiguous(), z), got)
+
+
+@pytest.mark.parametrize("nb", [0, 1, 9])
+def test_quotient_combine_kernel_equals_plain(dev, nb):
+    N, B, w = 1 << 12, 8, 5
+    acc = _field(1, (N, 4), dev)
+    xm = _field(2, (N,), dev)
+    inv = _field(3, (B + N + nb * N,), dev)
+    lde = _field(4, (w, N), dev)
+    cols = [j % w for j in range(nb)]
+    bvals = _field(5, (nb,), dev)
+    apb = _field(6, (nb, 4), dev)
+    got = ext.quotient_combine(acc, xm, inv, lde, cols, bvals, apb, B)
+    assert torch.equal(got, ext.quotient_combine_plain(
+        acc, xm, inv, lde, cols, bvals, apb, B))
+
+
+@pytest.mark.parametrize("two,nq", [(True, 8), (True, 0), (False, 0)])
+def test_deep_compose_kernel_equals_plain(dev, two, nq):
+    N, w = 1 << 12, 7
+    pts = _field(1, (N,), dev)
+    opens = [(_ext_point(10 + o), _field(20 + o, (N, 4), dev),
+              _field(30 + o, (w, 4), dev), _field(40 + o, (w, 4), dev))
+             for o in range(2 if two else 1)]
+    q = dict(q_lde=_field(5, (nq, 4, N), dev), q_z=_field(6, (nq, 4), dev),
+             gq=_field(7, (nq, 4), dev)) if nq else {}
+    got = ext.deep_compose(pts, opens, **q)
+    assert torch.equal(got, ext.deep_compose_plain(pts, opens, **q))
+
+
+@pytest.mark.parametrize("sizes", [(1,), (4, 1, 2), (64, 32, 1, 16, 8, 1),
+                                   (1 << 12, 1 << 11, 2, 1)])
+def test_batched_roots_kernel_equals_plain(dev, sizes):
+    from ethrex_tpu_torch.ops import merkle
+
+    d = _field(len(sizes), (sum(sizes), 8), dev)
+    got = merkle.batched_roots(d, sizes)
+    want = merkle.batched_roots_plain(d, sizes)
+    assert len(got) == len(sizes)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_fused_step_on_the_card_equals_cpu(dev):
+    from ethrex_tpu_torch.parallel.core import build_prove_step
+
+    step_d, args_d = build_prove_step(8, 8, 2, 4, device=dev)
+    step_c, args_c = build_prove_step(8, 8, 2, 4, device="cpu")
+    kernels.reset_launches()
+    troot, roots, cw = step_d(*args_d)
+    want = step_c(*args_c)
+    assert torch.equal(troot.cpu(), want[0])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(roots, want[1]))
+    assert torch.equal(cw.cpu(), want[2])
+    for name in ("ntt", "poseidon2_hash_leaves", "mod_matmul", "fri_fold",
+                 "deep_compose", "merkle_batched_level", "ext_poly_eval"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+def test_small_vm_stages_on_the_card_equal_cpu(dev):
+    """A VM-mode batch (2 transfer segments, 2 token segments, one
+    bytecode call): the stage proofs made on the card equal the CPU's."""
+    from ethrex_tpu_torch.guest import bytecode_vm as bv
+    from ethrex_tpu_torch.guest.transfer_log import BcCall, TokSeg, VmBatch
+    from ethrex_tpu_torch.primitives.account import AccountState
+    from ethrex_tpu_torch.prover import gpu_backend
+    from ethrex_tpu_torch.stark import state_tree
+
+    s_old = AccountState(nonce=4, balance=10**18)
+    s_new = AccountState(nonce=5, balance=10**18 - 1000 - 147000)
+    segs = [ta.TxSeg(b"\x11" * 20, b"\x22" * 20, s_old, s_new,
+                     AccountState(1, 500), AccountState(1, 1500), 1000,
+                     147000, 42000, r_created=False, r_noop=False),
+            ta.CbSeg(b"\x33" * 20, AccountState(0, 77),
+                     AccountState(0, 77 + 42000), 42000, created=False,
+                     noop=False)]
+    toks = [TokSeg(12345, 7, 10**6, 10**6 - 12345, 9, 500, 500 + 12345),
+            TokSeg(0, 0, 0, 0, 0, 0, 0, noop=True)]
+    code = bytes([0x60, 0x01, 0x60, 0x02, 0x01, 0x5F, 0x55, 0x00])
+    steps, snaps, _ = bv.run_trace(code, b"", b"\xaa" * 20, 0, lambda s: 0,
+                                   address=b"\xbb" * 20)
+    batch = VmBatch([], segs, toks, [], [BcCall(steps, snaps)])
+    rng = np.random.default_rng(5)
+    entries = {bytes(rng.integers(0, 256, 32, dtype=np.uint8)):
+               bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+               for _ in range(4)}
+    tree = state_tree.TouchedStateTree(entries, 2)
+    r_pre = tree.root
+    keys = sorted(entries)
+    records = [tree.update(keys[i], bytes([i]) * 32) for i in range(3)]
+    params = prover.StarkParams(3, 8, 4)
+    args = (records, r_pre, tree.root, 2, b"\x01" * 40, batch, "stark")
+    kernels.reset_launches()
+    on_card, _, _ = gpu_backend.prove_vm_stages(*args, device=dev,
+                                               params=params)
+    for name in ("air_constraints", "quotient_combine", "deep_compose",
+                 "ext_poly_eval"):
+        assert kernels.LAUNCHES[name] > 0, name
+    on_cpu, _, _ = gpu_backend.prove_vm_stages(*args, device="cpu",
+                                              params=params)
+    assert on_card == on_cpu

@@ -168,7 +168,7 @@ def test_convert_round_trips_field_arrays_and_params():
     p = convert.stark_params(dataclasses.asdict(JAX_PARAMS))
     assert dataclasses.asdict(p) == dataclasses.asdict(JAX_PARAMS)
     with pytest.raises(ValueError):
-        convert.air_from_spec({"air": "TransferAir"})
+        convert.air_from_spec({"air": "Poseidon2MerkleAir"})
 
 
 def test_prove_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
@@ -188,7 +188,12 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "ethrex_tpu_torch.kernels, ethrex_tpu_torch.stark.aggregate, "
             "ethrex_tpu_torch.stark.air_codegen, "
             "ethrex_tpu_torch.ops.bn254_msm, ethrex_tpu_torch.crypto.groth16, "
-            "ethrex_tpu_torch.prover.gpu_backend\n"
+            "ethrex_tpu_torch.prover.gpu_backend, "
+            "ethrex_tpu_torch.parallel.core, ethrex_tpu_torch.entry, "
+            "ethrex_tpu_torch.models.transfer_air, "
+            "ethrex_tpu_torch.models.token_air, "
+            "ethrex_tpu_torch.models.bytecode_air, "
+            "ethrex_tpu_torch.guest.transfer_log\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'ethrex_tpu' or "
             "m.startswith('ethrex_tpu.')]\n"
