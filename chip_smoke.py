@@ -6,16 +6,23 @@ Phases:
   1. the card's name and power limit (nvidia-smi); the Groth16 wrap's key
      setup (host bignum work, minutes) starts in a child process and runs
      beside every later phase;
-  2. build the CUDA kernels K1-K11 from ethrex_tpu_torch/csrc and the
-     generated AIR constraint kernels (K6) of the path's six AIRs, one
-     nvcc per source, all started together;
+  2. build the CUDA kernels K1-K11 and slice 4's four (ext_inv,
+     ext_batch_inv, eval_poly_at, to_mont_cols) from ethrex_tpu_torch/csrc
+     and the generated AIR constraint kernels (K6) of the path's six AIRs,
+     one nvcc per source, all started together;
   3. hold every kernel against its plain PyTorch version on the card, at
      the shapes the main path gives it (bit-equal), and time both with
-     CUDA events: K1-K4 at the state proof's shapes; K6 once per AIR at
-     its full LDE (the plain version of the three largest on a 2^20 or
-     2^24-point range); K7 on the outer divisor stack; K8, K9 and K11 at
-     the state and the outer proof's shapes; K10 on the fused step's FRI
-     layer trees;
+     CUDA events, beside each kernel's bound and earlier time: K1 (the
+     coset LDE) and K2 (the leaf hash and the Merkle tree above it) at
+     every distinct shape of the path (state 115 x 2^19, TransferAir
+     278 x 2^20, outer 90 x 2^22, blowup 8; the plain versions on the
+     first 8 rows or 2^20 leaves beyond the state shape); K3, K4 at the
+     state proof's shapes; K6 once per AIR at its full LDE (the plain
+     version of the three largest on a 2^20 or 2^24-point range); K7 on
+     the outer divisor stack; K8, K9 and K11 at the state and the outer
+     proof's shapes; K10 on the fused step's FRI layer trees; the ext
+     inverses on 2^20 elements, eval_poly_at on 64 x 2^16 and
+     to_mont_cols on the TransferAir trace (2^20 x 278);
   4. the main path, with the launch counts zeroed just before and read
      just after: `prover.gpu_backend.prove_vm_stages(..., "groth16")` on
      a VM-mode batch shaped like the reference's BASELINE-3 (1,000
@@ -33,7 +40,10 @@ Phases:
   6. checks: the port's verifier accepts the five inner proofs and
      rejects a tampered public input of four; `verify_aggregated` accepts
      the aggregate and rejects a tampered inner FRI value; `wrap_verify`
-     accepts the wrap and rejects a wrong digest;
+     accepts the wrap and rejects a wrong digest; then every STARK of the
+     main path is proved again from its trace under torch.profiler: per
+     phase the wall, the device time by kernel and the device's idle
+     share, and per kernel its device time over the path's STARKs;
   7. the earlier slice's path, its counts zeroed just before and read
      just after: a state proof (cut to 126 keys and 127 writes: n = 2^16
      x 115) and a 512-limb binding proof (64 chunks), then
@@ -42,8 +52,9 @@ Phases:
   8. K5 against its plain version on the wrap's own MSM inputs; a small
      state proof made on the card equals the same proof made by the plain
      versions on the CPU;
-  9. one JSON line with every kernel's launches (per path), error and
-     times, then {"ok": true, "device": {...}} as the last line.
+  9. one JSON line with every kernel's launches (per path), error,
+     times, bound, earlier time and device time on the path, then
+     {"ok": true, "device": {...}} as the last line.
 
 Any failure raises, so the exit code is not 0 and no result line prints.
 Imports nothing of JAX and nothing of the JAX package.
@@ -80,6 +91,22 @@ SLOTS_PER_BN254_MUL = 2 * 128 + 8
 # `pdbl`, `padd`)
 BN254_DBL_MULS = 7
 BN254_ADD_MULS = 16
+# each kernel's time at its timed shape before its current design
+# (PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's: K1 the state LDE, K2 the state leaves and one
+# tree level (2^22 -> 2^21), K6 TransferAir, K8, K9, K11 the outer shape,
+# K10 the fused step's layers
+EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
+              "poseidon2_compress_level": 1.065, "mod_matmul": 3.986,
+              "fri_fold": 0.073, "air_constraints": 64.031,
+              "batch_inv": 2.920, "bn254_msm_g1": 12.246,
+              "bn254_msm_g2": 41.750, "deep_compose": 6.848,
+              "quotient_combine": 1.567, "merkle_batched_level": 2.909,
+              "ext_poly_eval": 4.335}
+# kernels the groth16 paths need not launch: the reference's test-only
+# helpers (no path of the system runs them) and the fused step's own
+NOT_ON_GROTH16_PATHS = ("ext_inv", "ext_batch_inv", "eval_poly_at",
+                        "merkle_batched_level")
 
 
 def log(msg: str) -> None:
@@ -146,6 +173,162 @@ def compare(name, kern, plain, kernel_reps=5, plain_reps=3):
 # phase 3: every kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
+# (tag, trace width, log n) of every STARK of the path whose LDE and tree
+# are the largest: the state proof, TransferAir and the outer FriVerifyAir
+# (blowup 8: N = 8n)
+PATH_SHAPES = (("state", 115, 19), ("transfer", 278, 20), ("outer", 90, 22))
+# rows (of the LDE) and leaves the plain versions are held on beyond the
+# state shape, where the plain versions would not fit in time
+PLAIN_ROWS = 8
+PLAIN_LEAVES = 1 << 20
+
+
+def ntt_bound(w: int, n: int, N: int) -> tuple[float, str]:
+    """The coset LDE (w, n) -> (w, N) as the prover runs it: an iNTT and
+    the forward transform (its inputs read once, outputs written once;
+    the butterflies and the pre-scale)."""
+    io_bytes = 4 * (w * n + w * n) + 4 * (w * n + w * N)
+    muls = w * ((n // 2) * (n.bit_length() - 1)
+                + (N // 2) * (N.bit_length() - 1) + n)
+    return bound_ms(io_bytes, muls)
+
+
+def check_ntt_shapes(dev, rng) -> dict:
+    """K1: the coset LDE at every distinct shape of the path, timed at the
+    full size and held bit-equal to the plain version (on the first
+    PLAIN_ROWS rows beyond the state shape)."""
+    from ethrex_tpu_torch.ops import babybear as bb
+    from ethrex_tpu_torch.ops import ntt
+
+    shapes = []
+    for tag, w, log_n in PATH_SHAPES:
+        n = 1 << log_n
+        N = n << 3
+        x = field_dev(rng, (w, n), dev)
+        pre = ntt.lde_prescale(log_n, bb.GENERATOR, dev)
+
+        def kern():
+            return ntt.scaled_ntt(ntt.scaled_ntt(x, inverse=True), n_out=N,
+                                  pre=pre)
+
+        r = w if tag == "state" else PLAIN_ROWS
+
+        def plain():
+            return ntt.scaled_ntt_plain(ntt.scaled_ntt_plain(
+                x[:r], inverse=True), n_out=N, pre=pre)
+
+        got = kern()[:r]
+        want = plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ntt ({tag} LDE {w} x 2^{log_n}): kernel "
+                                 f"differs from its plain version")
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(kern, 5)
+        pms = cuda_ms(plain, 1) if tag == "state" else None
+        b_ms, b_by = ntt_bound(w, n, N)
+        shapes.append(dict(
+            tag=tag, shape=f"coset LDE ({w}, 2^{log_n}) -> ({w}, "
+            f"2^{log_n + 3})", passes=len(ntt.ntt_plan(log_n))
+            + len(ntt.ntt_plan(log_n + 3)), ms=ms, bound_ms=b_ms,
+            bound_by=b_by, plain_ms=pms, plain_rows=r,
+            earlier_ms=EARLIER_MS["ntt"] if tag == "state" else None))
+        log(f"[kernels] ntt {tag}: {shapes[-1]}")
+        del x
+        torch.cuda.empty_cache()
+    st = shapes[0]
+    return dict(max_abs_err=0, ms=st["ms"], plain_ms=st["plain_ms"],
+                bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+                shape=st["shape"], earlier_ms=EARLIER_MS["ntt"],
+                at_shapes=shapes)
+
+
+def tree_bound(m: int) -> tuple[float, str]:
+    """Every level above m leaf digests: m - 1 compressions (772
+    products each), the leaves read once and every level written once."""
+    return bound_ms(4 * 8 * (m + m - 1), (m - 1) * 772)
+
+
+def check_merkle_shapes(dev, rng) -> dict:
+    """K2 at every distinct shape of the path: the leaf hash of the LDE
+    rows (read in place from the (w, N) columns) and the tree above the
+    N leaf digests, timed at the full size and held bit-equal to the
+    plain versions (the leaves on the first PLAIN_LEAVES rows beyond the
+    state shape; the tree whole)."""
+    from ethrex_tpu_torch.ops import merkle
+    from ethrex_tpu_torch.ops import poseidon2 as p2
+
+    leaves_rows, tree_rows = [], []
+    for tag, w, log_n in PATH_SHAPES:
+        N = 1 << (log_n + 3)
+        lde = field_dev(rng, (w, N), dev)
+        M = N if tag == "state" else PLAIN_LEAVES
+        got = p2.hash_leaves(lde.T)
+        if not torch.equal(got[:M], p2.hash_leaves_plain(lde.T[:M])):
+            raise AssertionError(f"poseidon2_hash_leaves ({tag}, {N} x {w})"
+                                 f": kernel differs from its plain version")
+        ms = cuda_ms(lambda: p2.hash_leaves(lde.T), 5)
+        pms = cuda_ms(lambda: p2.hash_leaves_plain(lde.T), 1) \
+            if tag == "state" else None
+        perms = N * (-(-w // 8))
+        b_ms, b_by = bound_ms(4 * (w * N + 8 * N), perms * 772)
+        leaves_rows.append(dict(
+            tag=tag, shape=f"leaves ({N}, {w})", ms=ms, bound_ms=b_ms,
+            bound_by=b_by, plain_ms=pms, plain_rows=M,
+            earlier_ms=EARLIER_MS["poseidon2_hash_leaves"] if tag == "state"
+            else None))
+        log(f"[kernels] poseidon2_hash_leaves {tag}: {leaves_rows[-1]}")
+        del lde
+        torch.cuda.empty_cache()
+        # the tree above the digests: one (2N - 1, 8) level buffer
+        buf = torch.empty((2 * N - 1, 8), dtype=torch.int32, device=dev)
+        buf[:N] = got
+        del got
+        levels = merkle.levels_above(buf, N)
+        want = [levels[0]]
+        while want[-1].shape[0] > 1:
+            want.append(p2.compress_level_plain(want[-1]))
+        if len(want) != len(levels) or not all(
+                torch.equal(a, b) for a, b in zip(levels, want)):
+            raise AssertionError(f"poseidon2_merkle_subtree ({tag}, {N} "
+                                 f"leaves): kernel differs from its plain "
+                                 f"version")
+        del want
+        ms = cuda_ms(lambda: merkle.levels_above(buf, N), 5)
+        pms = None
+        one = None
+        if tag == "state":
+            def plain_tree():
+                lv = levels[0]
+                while lv.shape[0] > 1:
+                    lv = p2.compress_level_plain(lv)
+            pms = cuda_ms(plain_tree, 1)
+            # one level alone (a one-level subtree launch), the work the
+            # earlier per-level kernel was timed on
+            one = cuda_ms(lambda: p2.compress_level(levels[0]), 5)
+        b_ms, b_by = tree_bound(N)
+        tree_rows.append(dict(
+            tag=tag, shape=f"tree over {N} leaves", ms=ms, bound_ms=b_ms,
+            bound_by=b_by, plain_ms=pms,
+            launches=len(merkle.subtree_plan(N)), one_level_ms=one,
+            one_level_earlier_ms=EARLIER_MS["poseidon2_compress_level"]
+            if tag == "state" else None))
+        log(f"[kernels] poseidon2_merkle_subtree {tag}: {tree_rows[-1]}")
+        del buf, levels
+        torch.cuda.empty_cache()
+    out = {}
+    for name, rs in (("poseidon2_hash_leaves", leaves_rows),
+                     ("poseidon2_merkle_subtree", tree_rows)):
+        st = rs[0]
+        out[name] = dict(max_abs_err=0, ms=st["ms"], plain_ms=st["plain_ms"],
+                         bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+                         shape=st["shape"], at_shapes=rs)
+    out["poseidon2_hash_leaves"]["earlier_ms"] = \
+        EARLIER_MS["poseidon2_hash_leaves"]
+    return out
+
+
 def check_kernels(dev, rng) -> dict:
     from ethrex_tpu_torch.ops import babybear as bb
     from ethrex_tpu_torch.ops import fri
@@ -154,29 +337,7 @@ def check_kernels(dev, rng) -> dict:
 
     n, w, lb, K = 1 << 19, 115, 3, 159
     N = n << lb
-    rows = {}
-
-    # K1: the trace LDE (115, 2^19) -> (115, 2^22) as the prover runs it
-    # (an iNTT, then the forward transform with the coset pre-scale and
-    # zero pad); plus the other transform shapes of the path, checked only
-    x = field(rng, (w, n), dev)
-    pre = ntt.lde_prescale(19, bb.GENERATOR, dev)
-    coeffs = ntt.scaled_ntt(x, inverse=True)
-    err0, ms0, pms0 = compare(
-        "ntt (iNTT 115 x 2^19)",
-        lambda: ntt.scaled_ntt(x, inverse=True),
-        lambda: ntt.scaled_ntt_plain(x, inverse=True), plain_reps=1)
-    err1, ms1, pms1 = compare(
-        "ntt (LDE 115 x 2^19 -> 2^22)",
-        lambda: ntt.scaled_ntt(coeffs, n_out=N, pre=pre),
-        lambda: ntt.scaled_ntt_plain(coeffs, n_out=N, pre=pre), plain_reps=1)
-    io_bytes = 4 * (w * n + w * n) + 4 * (w * n + w * N)
-    muls = w * ((n // 2) * 19 + (N // 2) * 22 + n)
-    b_ms, b_by = bound_ms(io_bytes, muls)
-    rows["ntt"] = dict(max_abs_err=max(err0, err1), ms=ms0 + ms1,
-                       plain_ms=pms0 + pms1, bound_ms=b_ms, bound_by=b_by,
-                       shape="coset LDE (115, 2^19) -> (115, 2^22)")
-    del coeffs
+    rows = {"ntt": check_ntt_shapes(dev, rng)}
     for shape, kw in (((4, N), dict(inverse=True)),
                       ((8, 4, n), dict(n_out=N)),
                       ((4, 16), dict(inverse=True))):
@@ -188,38 +349,12 @@ def check_kernels(dev, rng) -> dict:
             raise AssertionError(f"ntt {shape} {kw}: kernel differs")
         del y, got, want
     log(f"[kernels] ntt ok: {rows['ntt']}")
-
-    # K2: leaf hash of the LDE rows, read in place from (115, 2^22)
-    lde = field(rng, (w, N), dev)
-    err, ms, pms = compare(
-        "poseidon2_hash_leaves (2^22 x 115)",
-        lambda: p2.hash_leaves(lde.T), lambda: p2.hash_leaves_plain(lde.T),
-        plain_reps=1)
-    perms = N * (-(-w // 8))
-    b_ms, b_by = bound_ms(4 * (w * N + 8 * N), perms * 772)
-    rows["poseidon2_hash_leaves"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-        shape="trace leaves (2^22, 115)")
-    del lde
-    log(f"[kernels] poseidon2_hash_leaves ok: {rows['poseidon2_hash_leaves']}")
+    rows.update(check_merkle_shapes(dev, rng))
     cw = field(rng, (1 << 20, 4), dev)   # an FRI layer, paired in place
     if not torch.equal(p2.hash_leaves(fri.pair_leaves(cw)),
                        p2.hash_leaves_plain(fri.pair_leaves(cw))):
         raise AssertionError("hash_leaves on paired FRI leaves differs")
     del cw
-
-    level = field(rng, (N, 8), dev)
-    err, ms, pms = compare(
-        "poseidon2_compress_level (2^22 -> 2^21)",
-        lambda: p2.compress_level(level),
-        lambda: p2.compress_level_plain(level), plain_reps=1)
-    b_ms, b_by = bound_ms(4 * (N * 8 + N // 2 * 8), (N // 2) * 772)
-    rows["poseidon2_compress_level"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-        shape="first tree level (2^22, 8) -> (2^21, 8)")
-    del level
-    log(f"[kernels] poseidon2_compress_level ok: "
-        f"{rows['poseidon2_compress_level']}")
 
     # K3: the alpha combination (2^22, 159) @ (159, 4), read in place from
     # the (159, 2^22) constraint stack; also the open phase's (115, 2^19)
@@ -452,6 +587,197 @@ def check_ext_glue(dev, rng) -> dict:
         out[name] = dict(rs[-1], at_state_shape=rs[0])
         log(f"[kernels] {name} ok: {out[name]}")
     return out
+
+
+def check_slice4_kernels(dev, rng) -> dict:
+    """The four kernels of slice 4 at the sizes of their callers: the ext
+    inverses over 2^20 elements and eval_poly_at over 64 rows of 2^16
+    (test-only helpers), and to_mont_cols on the TransferAir trace as
+    uploaded (2^20 x 278)."""
+    from ethrex_tpu_torch.ops import babybear as bb
+    from ethrex_tpu_torch.ops import ext
+    from ethrex_tpu_torch.ops import ntt
+
+    rows = {}
+    n = 1 << 20
+    a = field_dev(rng, (n, 4), dev)
+    # per element: 12 Frobenius products, two ext products (32), the norm
+    # (5), the Fermat power (61), the scaling (4)
+    for name, kern, plain, prods in (
+            ("ext_inv", ext.ext_inv_device, ext.ext_inv_device_plain,
+             n * 114),
+            ("ext_batch_inv", ext.batch_inv, ext.batch_inv_plain,
+             n * 48 + -(-n // ext._EXT_INV_CHUNK) * 114)):
+        err, ms, pms = compare(f"{name} ({n} ext elements)",
+                               lambda: kern(a), lambda: plain(a),
+                               plain_reps=1)
+        b_ms, b_by = bound_ms(4 * 8 * n, prods)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          shape=f"({n}, 4) ext elements")
+        log(f"[kernels] {name} ok: {rows[name]}")
+    del a
+    r, m = 64, 1 << 16
+    c = field_dev(rng, (r, m), dev)
+    pt = int(rng.integers(1, bb.P))
+    err, ms, pms = compare(f"eval_poly_at ({r} x {m})",
+                           lambda: ntt.eval_poly_at(c, pt),
+                           lambda: ntt.eval_poly_at_plain(c, pt),
+                           plain_reps=1)
+    b_ms, b_by = bound_ms(4 * (r * m + r), 2 * r * m)
+    rows["eval_poly_at"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                shape=f"({r}, {m}) at one point")
+    log(f"[kernels] eval_poly_at ok: {rows['eval_poly_at']}")
+    del c
+    n, w = 1 << 20, 278
+    trace = field_dev(rng, (n, w), dev)
+    err, ms, pms = compare(f"to_mont_cols ({n} x {w})",
+                           lambda: bb.to_mont_cols(trace),
+                           lambda: bb.to_mont_cols_plain(trace),
+                           plain_reps=1)
+    b_ms, b_by = bound_ms(4 * 2 * n * w, n * w)
+    rows["to_mont_cols"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                shape=f"TransferAir trace ({n}, {w}) -> "
+                                      f"({w}, {n})")
+    log(f"[kernels] to_mont_cols ok: {rows['to_mont_cols']}")
+    del trace
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fused_bound_ms(log_n: int, w: int = 64, log_blowup: int = 2,
+                   log_final: int = 5) -> float:
+    """The fused step's bound: the sum of its kernels' bounds at its shape
+    (parallel/core.py: the LDE and the trace's iNTT, the leaf hash and
+    tree of the LDE rows, the power table and the two matmuls, the DEEP
+    codeword, every FRI fold, the layers' leaf hash and roots)."""
+    n = 1 << log_n
+    N = n << log_blowup
+    L = log_n + log_blowup - log_final
+    parts = [ntt_bound(w, n, N),
+             bound_ms(4 * 2 * w * n, w * ((n // 2) * log_n + n)),
+             bound_ms(4 * (w * N + 8 * N), N * (-(-w // 8)) * 772),
+             tree_bound(N),
+             bound_ms(4 * (w * n + 4 * n + 4 * w), 4 * w * n + 16 * n),
+             bound_ms(4 * (w * N + 4 * w + 4 * N), 4 * w * N),
+             bound_ms(4 * N * (1 + 4 + 4), N * (22 + 6 + 8 + 18))]
+    sizes = [N >> (k + 1) for k in range(L)]
+    for half in sizes:
+        parts.append(bound_ms(4 * (8 * half + half + 4 * half), 28 * half))
+    leaves = sum(sizes)
+    parts.append(bound_ms(4 * 16 * leaves, 772 * leaves))
+    parts.append(bound_ms(4 * 8 * (leaves + L), 772 * (leaves - L)))
+    return sum(ms for ms, _ in parts)
+
+
+def _short_kernel_name(name: str) -> str:
+    """A device event's name without namespace, template and arguments:
+    the CUDA function (k_ntt_pass, air_k0, ...), or "torch <kernel>" for
+    PyTorch's own, or the copy or fill as the profiler names it."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name
+    name = name.replace("(anonymous namespace)::", "")
+    torch_kernel = "at::" in name
+    head = name.split("<")[0].split("(")[0].split("::")[-1].split()
+    short = head[-1] if head else name
+    return f"torch {short}" if torch_kernel else short
+
+
+def _time_wrappers(fn):
+    """Fallback when the profiler reports no device events: CUDA events
+    around every `kernels.call` launch (the generated K6 kernels launch
+    outside it and are not timed)."""
+    from ethrex_tpu_torch import kernels
+
+    orig = kernels.call
+    recs = []
+
+    def call(entry, device, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig(entry, device, *args)
+        b.record()
+        recs.append((entry, time.perf_counter(), a, b))
+
+    kernels.call = call
+    try:
+        out = fn()
+    finally:
+        kernels.call = orig
+    torch.cuda.synchronize()
+    return out, [(e, t, a.elapsed_time(b)) for e, t, a, b in recs]
+
+
+def profile_path(dev, result) -> dict:
+    """Where each phase's wall goes: every STARK of the main path proved
+    again from its trace under torch.profiler (CPU and CUDA activity).
+    Per proof and phase: the wall, the device time (kernels, copies and
+    fills starting inside the phase's span), the idle share and the
+    kernels by device time; per kernel: its device time summed over the
+    proofs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ethrex_tpu_torch.stark import prover
+
+    params = result["params"]
+    per_kernel: dict = {}
+    report: dict = {}
+    source = "torch.profiler"
+    for name, (air, trace, pub) in result["traces"].items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("smoke:anchor"):
+                t_anchor = time.perf_counter()
+            _, st = prover.prove_with_stats(air, trace, pub, params,
+                                            device=dev)
+            torch.cuda.synchronize()
+        events = prof.events()
+        anchor = next(e for e in events if e.name == "smoke:anchor")
+        off_us = anchor.time_range.start - t_anchor * 1e6
+        dev_ev = [(e.time_range.start, e.time_range.elapsed_us(),
+                   _short_kernel_name(e.name)) for e in events
+                  if e.device_type == DeviceType.CUDA]
+        if not dev_ev:
+            source = "CUDA events around kernels.call (profiler: none)"
+            (_, st), recs = _time_wrappers(lambda: prover.prove_with_stats(
+                air, trace, pub, params, device=dev))
+            off_us = 0.0
+            dev_ev = [(t * 1e6, ms * 1e3, e) for e, t, ms in recs]
+        phases = {}
+        for ph, t0, t1 in st["phase_spans"]:
+            a, b = t0 * 1e6 + off_us, t1 * 1e6 + off_us
+            by: dict = {}
+            for start, dur, nm in dev_ev:
+                if a <= start < b:
+                    by[nm] = by.get(nm, 0.0) + dur / 1e3
+            busy = sum(by.values())
+            wall = (t1 - t0) * 1e3
+            phases[ph] = dict(wall_ms=wall, device_ms=busy,
+                              idle_share=max(0.0, 1 - busy / wall)
+                              if wall else 0.0,
+                              top=sorted(((k, round(v, 3)) for k, v in
+                                          by.items()), key=lambda kv: -kv[1])
+                              [:6])
+            for k, v in by.items():
+                per_kernel[k] = per_kernel.get(k, 0.0) + v
+        busy = sum(p["device_ms"] for p in phases.values())
+        report[name] = dict(total_s=st["total_s"], device_ms=busy,
+                            idle_share=1 - busy / (st["total_s"] * 1e3),
+                            phases=phases)
+        log(f"[profile] {name} ({source}): proof {st['total_s']:.3f} s, "
+            f"device {busy:.1f} ms, idle share "
+            f"{report[name]['idle_share']:.3f}; phases "
+            f"{json.dumps(phases)}")
+        del prof, events, dev_ev
+    per_kernel = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1]))
+    log(f"[profile] device ms per kernel over the {len(report)} STARKs: "
+        f"{json.dumps({k: round(v, 3) for k, v in per_kernel.items()})}")
+    return dict(source=source, proofs=report, per_kernel=per_kernel)
 
 
 def check_batched_roots(dev, rng, log_n: int, log_blowup: int = 2,
@@ -705,13 +1031,14 @@ def main_path(dev, rng, keys_future) -> dict:
         f"variables, domain {keys[2].domain_size}")
 
     stats: dict = {}
+    traces: dict = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
     t_main = time.perf_counter()
     out, airs, proofs = gpu_backend.prove_vm_stages(
         records, r_pre, tree.root, depth, encoded, batch, "groth16",
-        device=dev, params=params, stats=stats)
+        device=dev, params=params, stats=stats, traces=traces)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     launches = dict(kernels.LAUNCHES)
@@ -741,12 +1068,19 @@ def main_path(dev, rng, keys_future) -> dict:
     log(f"[main] whole VM-mode groth16 path {main_s:.3f} s; peak device "
         f"memory {peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
     missing = [k for k, v in launches.items()
-               if v <= 0 and k != "merkle_batched_level"]
+               if v <= 0 and k not in NOT_ON_GROTH16_PATHS]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    # the upload of every STARK's trace (state, transfer, token,
+    # bytecode, binding, outer) goes through the kernel
+    if launches["to_mont_cols"] < len(traces):
+        raise AssertionError(f"to_mont_cols launched "
+                             f"{launches['to_mont_cols']}"
+                             f" times for {len(traces)} STARKs")
     return dict(launches=launches, airs=airs, out=out, proofs=proofs,
-                main_s=main_s, peak_bytes=peak, params=params, stats=stats)
+                main_s=main_s, peak_bytes=peak, params=params, stats=stats,
+                traces=traces)
 
 
 def check_inner(names, airs, full, params, tamper) -> None:
@@ -876,7 +1210,7 @@ def two_proof_path(dev, rng) -> dict:
         f"{agg_stats['outer']['total_s']:.3f} s); peak device memory "
         f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
     missing = [k for k, v in launches.items()
-               if v <= 0 and k != "merkle_batched_level"]
+               if v <= 0 and k not in NOT_ON_GROTH16_PATHS]
     if missing:
         raise AssertionError(f"kernels not launched on the two-proof path: "
                              f"{missing}")
@@ -930,7 +1264,7 @@ def fused_step(dev) -> dict:
         got = dict(kernels.LAUNCHES)
         for name, v in got.items():
             launches[name] = launches.get(name, 0) + v
-        need = ("ntt", "poseidon2_hash_leaves", "poseidon2_compress_level",
+        need = ("ntt", "poseidon2_hash_leaves", "poseidon2_merkle_subtree",
                 "mod_matmul", "fri_fold", "deep_compose",
                 "merkle_batched_level", "ext_poly_eval")
         missing = [k for k in need if got[k] <= 0]
@@ -953,9 +1287,11 @@ def fused_step(dev) -> dict:
                 f"(troot, {len(roots)} FRI roots, final codeword; CPU "
                 f"{cpu_s:.1f} s)")
         ms = cuda_ms(lambda: step(*args), 3)
-        rows[log_n] = dict(ms=ms, launches=got)
+        b_ms = fused_bound_ms(log_n)
+        rows[log_n] = dict(ms=ms, bound_ms=b_ms, launches=got)
         log(f"[fused] log_n {log_n} x 64 (LDE 2^{log_n + 2}): {ms:.3f} ms "
-            f"per step; launches {json.dumps(got)}")
+            f"per step (bound {b_ms:.3f} ms, the sum of its kernels'); "
+            f"launches {json.dumps(got)}")
         del step, args
         torch.cuda.empty_cache()
     return dict(rows=rows, launches=launches)
@@ -1025,9 +1361,12 @@ def main() -> int:
         rows["batch_inv"] = check_batch_inv(dev, rng)
         rows.update(check_ext_glue(dev, rng))
         rows["merkle_batched_level"] = check_batched_roots(dev, rng, 20)
+        rows.update(check_slice4_kernels(dev, rng))
         result = main_path(dev, rng, keys_future)
     fused = fused_step(dev)
     check_main_path(result)
+    prof = profile_path(dev, result)
+    del result["traces"]
     two = two_proof_path(dev, rng)
     from ethrex_tpu_torch.prover import groth16_wrap
 
@@ -1039,6 +1378,12 @@ def main() -> int:
     small_cross_check(dev, rng)
     log(f"[end] smoke wall {time.perf_counter() - t_start:.1f} s")
 
+    path_ms: dict = {}
+    for fn, ms in prof["per_kernel"].items():
+        key = DEVICE_FUNCTIONS.get(fn, "air_constraints"
+                                   if fn.startswith("air_k") else None)
+        if key:
+            path_ms[key] = path_ms.get(key, 0.0) + ms
     out = []
     for name, src in kernels.KERNELS.items():
         row = rows[name]
@@ -1056,21 +1401,44 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"],
+            "earlier_ms": row.get("earlier_ms", EARLIER_MS.get(name)),
+            "path_device_ms": path_ms.get(name, 0.0),
+            **({"at_shapes": row["at_shapes"]} if "at_shapes" in row
+               else {}),
             **({"per_air": row["per_air"]} if "per_air" in row else {}),
             **({"at_state_shape": row["at_state_shape"]}
                if "at_state_shape" in row else {}),
         })
-    log(json.dumps({"kernels": out}))
+    log(json.dumps({"kernels": out, "fused_step": {
+        str(k): {"ms": v["ms"], "bound_ms": v["bound_ms"]}
+        for k, v in fused["rows"].items()},
+        "profile_source": prof["source"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 
+# device function (csrc/*.cu) -> its kernel's KERNELS name, to sum the
+# profile's device time per kernel; the generated K6 kernels are air_k*
+DEVICE_FUNCTIONS = {
+    "k_ntt_pass": "ntt", "k_hash_leaves": "poseidon2_hash_leaves",
+    "k_subtree": "poseidon2_merkle_subtree", "k_rows": "mod_matmul",
+    "k_splitk": "mod_matmul", "k_splitk_finish": "mod_matmul",
+    "k_fold": "fri_fold", "k_batch_inv": "batch_inv",
+    "k_double_and_add": "bn254_msm_g1", "k_tree_level": "bn254_msm_g1",
+    "k_store_result": "bn254_msm_g1", "k_deep": "deep_compose",
+    "k_quotient": "quotient_combine",
+    "k_batched_level": "merkle_batched_level",
+    "k_table": "ext_poly_eval", "k_eval_partial": "ext_poly_eval",
+    "k_eval_final": "ext_poly_eval", "k_ext_inv": "ext_inv",
+    "k_ext_batch_inv": "ext_batch_inv", "k_eval_poly_at": "eval_poly_at",
+    "k_to_mont_cols": "to_mont_cols"}
+
 REPLACES = {
     "ntt": "ethrex_tpu/ops/ntt.py:51",
     "poseidon2_hash_leaves": "ethrex_tpu/ops/poseidon2.py:232",
-    "poseidon2_compress_level": "ethrex_tpu/ops/poseidon2.py:222",
+    "poseidon2_merkle_subtree": "ethrex_tpu/ops/merkle.py:22",
     "mod_matmul": "ethrex_tpu/ops/babybear.py:191",
     "fri_fold": "ethrex_tpu/ops/fri.py:49",
     "air_constraints": "ethrex_tpu/stark/prover.py:527",
@@ -1081,6 +1449,10 @@ REPLACES = {
     "quotient_combine": "ethrex_tpu/stark/prover.py:540",
     "merkle_batched_level": "ethrex_tpu/ops/merkle.py:60",
     "ext_poly_eval": "ethrex_tpu/ops/ext.py:175",
+    "ext_inv": "ethrex_tpu/ops/ext.py:183",
+    "ext_batch_inv": "ethrex_tpu/ops/ext.py:209",
+    "eval_poly_at": "ethrex_tpu/ops/ntt.py:166",
+    "to_mont_cols": "ethrex_tpu/ops/babybear.py:117",
 }
 
 

@@ -2,8 +2,9 @@
 //
 // Elements are residues below p = 15 * 2^27 + 1 in Montgomery form with
 // R = 2^32, exactly as ethrex_tpu/ops/babybear.py:26-33 defines them:
-// NP = -p^{-1} mod 2^32, and mul(a, b) = a * b * R^{-1} mod p.  Tensors on
-// the PyTorch side are int32; the kernels read the same memory as uint32.
+// mul(a, b) = a * b * R^{-1} mod p (the reference reduces with -p^{-1},
+// `mul` below with p^{-1}: the same residue).  Tensors on the PyTorch side
+// are int32; the kernels read the same memory as uint32.
 #pragma once
 
 #include <cstdint>
@@ -12,34 +13,49 @@
 namespace bb {
 
 constexpr uint32_t P = 2013265921u;
-constexpr uint32_t NP = 2013265919u;   // -p^{-1} mod 2^32
+constexpr uint32_t PINV = 2281701377u; // p^{-1} mod 2^32
 constexpr uint32_t R2 = 1172168163u;   // R^2 mod p
 constexpr uint32_t MONT_ONE = 268435454u;  // R mod p
 constexpr uint32_t W_M = 939524073u;   // 11 (x^4 = W) in Montgomery form
 
+// min(a + b, c) in 32-bit unsigned arithmetic (the sum wraps).  nvcc
+// compiles it for sm_90 to one DPX instruction, VIADDMNMX (the SASS counts
+// of tools/p2_variants.py show it), so every reduction below is one add
+// and one add-min, with no compare and no select.
+__device__ __forceinline__ uint32_t addmin(uint32_t a, uint32_t b,
+                                           uint32_t c) {
+  return min(a + b, c);
+}
+
+// s < 2p -> s mod p: s - p wraps above s exactly when s < p
+__device__ __forceinline__ uint32_t reduce2p(uint32_t s) {
+  return addmin(s, 0u - P, s);
+}
+
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;  // < 2p < 2^32
-  return s >= P ? s - P : s;
+  return reduce2p(a + b);  // a + b < 2p < 2^32
 }
 
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + P - b;
+  uint32_t d = a - b;      // wraps when a < b; then d + p is the residue
+  return addmin(d, P, d);
 }
 
-// Montgomery product: a * b * R^{-1} mod p, inputs and output below p.
-// On sm_90a it compiles to three multiplies, IMAD.WIDE.U32, IMAD and
-// IMAD.HI.U32; the wide and high forms issue at half the IMAD rate, so a
-// product costs five IMAD issue slots (ethrex_tpu_torch/tools/
-// int_mul_rate.py measures both).
+// Montgomery product a * b * R^{-1} mod p, exact and canonical whenever
+// a * b < p * 2^32 (so for a < 2^32 and b < p, not only for a, b < p).
+// With m = lo * p^{-1} mod 2^32 the low words of x and m * p are equal, so
+// (x - m p) / 2^32 = hi - umulhi(m, p) with no carry to test; the value
+// lies in (-p, p) and one add-min of p makes it canonical.  On sm_90a it
+// compiles to three multiplies, IMAD.WIDE.U32, IMAD and IMAD.HI.U32 (the
+// wide and high forms issue at half the IMAD rate: five IMAD issue slots
+// a product, measured by ethrex_tpu_torch/tools/int_mul_rate.py), plus
+// one add and one add-min.
 __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
   uint64_t x = (uint64_t)a * b;
   uint32_t lo = (uint32_t)x;
   uint32_t hi = (uint32_t)(x >> 32);
-  uint32_t m = lo * NP;
-  uint32_t mp_hi = __umulhi(m, P);
-  // x + m*p == 0 (mod 2^32): the low words carry iff lo != 0
-  uint32_t t = hi + mp_hi + (lo != 0u);  // < 2p
-  return t >= P ? t - P : t;
+  uint32_t t = hi - __umulhi(lo * PINV, P);
+  return addmin(t, P, t);
 }
 
 __device__ __forceinline__ uint32_t mpow(uint32_t a, uint32_t e) {

@@ -1,182 +1,227 @@
 // K1: batched in-order NTT / iNTT over the last axis of a (rows, n) buffer,
-// with the coset scaling and zero padding of the LDE fused into its passes.
+// with the pre-scale, the zero pad and the post-scale of the LDE fused into
+// its passes.
 //
 // Replaces the jax.jit programs ethrex_tpu/ops/ntt.py:51 `ntt`/`intt`,
 // :92 `coset_lde`, :115 `coset_intt` and :125 `coset_evals_from_coeffs`.
-// The wrapper (ethrex_tpu_torch/ops/ntt.py) composes them from three
-// entries:
-//   ntt_prepare  out[r, i] = pre[j] * in[r, j], j = bitrev(i), or 0 when
-//                j >= m_in (the zero pad of the extension);
-//   ntt_stages   the log2(n) radix-2 DIT butterfly stages, 11 at a time
-//                inside shared memory: the first 11 on contiguous
-//                2048-element tiles, the next 11 on tiles of 2048 strided
-//                elements x 8 neighbouring columns (so a 2^22 transform
-//                makes two passes over memory, not 12);
-//   ntt_scale    out[r, i] *= post[i] (1/n times the inverse coset powers).
-// Twiddles are precomputed on the host per (log n, direction), as
-// ntt.py:37-47 does, and laid out stage by stage (stage s at offset 2^s-1).
+// The wrapper (ethrex_tpu_torch/ops/ntt.py `scaled_ntt`) launches one
+// `ntt_pass` per pass of its plan (`ntt_plan`): two passes up to 2^22
+// points, three up to 2^33.  A pass does L <= 11 radix-2 stages of a
+// decimation-in-time transform whose input is read in bit-reversed order:
+//   pass 1 (S = 0) loads G tiles of 2^L: tile position l of the g-th tile
+//     of block b holds input j = rev_L(l) 2^(log n - L) + b G + g, so each
+//     run of G neighbouring tiles reads G consecutive input words and the
+//     bit reversal happens in shared memory, never as a scattered global
+//     gather.  The zero pad is implicit: inputs j >= m_in are zeros that
+//     are never read (the LDE reads n words a row and writes 8n), and the
+//     pre-scale multiplies each word as it arrives;
+//   pass p > 1 (S stages done) loads, for G neighbouring columns c, the
+//     2^L elements c + 2^S jj of one block of 2^(S+L) points, multiplies
+//     element jj by w_(2^(S+L))^(rev_L(jj) c) (a two-level table: two
+//     products a word), transforms the column as a size-2^L DIT with the
+//     tile's own roots and writes it back in place, in natural order.
+//     The last pass multiplies by the post-scale as it stores.
+// Inside a pass the L stages run as register rounds of up to three stages
+// (8 words a thread, radix 2^3), with one shared-memory exchange between
+// rounds; the butterflies' roots w_(2^L)^e come from a table of 2^(L-1)
+// words in shared memory.  In pass 1 of an LDE (m_in <= n / 8) stages 0-2
+// only copy each input to its 8 neighbours, so the load does the copy and
+// the rounds start at stage 3.  tests/test_torch_kernel_plans.py runs the
+// same indexing in numpy against the JAX package.
 //
-// Bound on this card: memory traffic and the 32-bit multiplies of the
-// butterflies.  The LDE of the state proof reads and writes 115 x 2^22
-// words per pass; the two shared-memory passes replace 22 global ones.
-// The bit-reversal gather in ntt_prepare reads scattered words; a later
-// version can transpose through shared memory instead.
+// Bound on this card: memory traffic and the multiplies of the
+// butterflies.  The state LDE (115 x 2^19 -> 2^22) moves 5n + 3N words a
+// row (iNTT: two passes over n; forward: n in, N out, then N in and out),
+// about 6.9 GB.  A block loads its tile, transforms it, then stores it,
+// so within a block memory and arithmetic do not overlap; the kernel
+// runs at about 4x its bound (PERF.md).
 #include "babybear.cuh"
 
 namespace {
 
-constexpr int TILE_LOG = 11;
-constexpr int GROUP = 8;
+#ifndef NTT_RADIX_LOG
+#define NTT_RADIX_LOG 3
+#endif
+constexpr int RADIX_LOG = NTT_RADIX_LOG;
 
-__global__ void k_prepare(const uint32_t* __restrict__ in,
-                          uint32_t* __restrict__ out,
-                          const uint32_t* __restrict__ pre, long long rows,
-                          long long m_in, long long in_stride, int log_n) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = rows << log_n;
-  if (idx >= total) return;
-  long long r = idx >> log_n;
-  uint32_t i = (uint32_t)(idx & ((1ll << log_n) - 1));
-  uint32_t j = log_n == 0 ? 0u : (__brev(i) >> (32 - log_n));
-  uint32_t v = 0;
-  if ((long long)j < m_in) {
-    v = in[r * in_stride + j];
-    if (pre != nullptr) v = bb::mul(v, pre[j]);
-  }
-  out[idx] = v;
+__device__ __forceinline__ uint32_t rev_bits(uint32_t v, int bits) {
+  return bits == 0 ? 0u : (__brev(v) >> (32 - bits));
 }
 
-__global__ void k_stages_shared(uint32_t* __restrict__ data,
-                                const uint32_t* __restrict__ tw,
-                                int tile_log) {
+// One register round of stages [sa, sa + R) on unit (g, q) of a tile
+// stored as tile[pos * GP + g]: the unit holds positions
+// base + (r << sa), r < 2^R, base = q's low sa bits with the rest shifted
+// above the round's R bits.  At stage sa + t the butterfly of r (bit t
+// clear) takes w_(2^(sa+t+1))^(lo + (r mod 2^t) 2^sa), lo = base mod 2^sa:
+// 2^t roots per stage, read once each.
+template <int R>
+__device__ __forceinline__ void radix_round(uint32_t* __restrict__ tile,
+                                            const uint32_t* __restrict__ tw,
+                                            int GP, int g, int q, int sa,
+                                            int L) {
+  constexpr int K = 1 << R;
+  const int lo = q & ((1 << sa) - 1);
+  const int base = lo | ((q >> sa) << (sa + R));
+  uint32_t* p = tile + base * GP + g;
+  const int stride = GP << sa;
+  uint32_t v[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) v[r] = p[r * stride];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int sh = L - 1 - sa - t;
+    uint32_t w[K / 2];
+#pragma unroll
+    for (int j = 0; j < (1 << t); ++j) w[j] = tw[(lo + (j << sa)) << sh];
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      if (r & (1 << t)) continue;
+      const int r2 = r + (1 << t);
+      const uint32_t x = bb::mul(v[r2], w[r & ((1 << t) - 1)]);
+      const uint32_t u = v[r];
+      v[r] = bb::add(u, x);
+      v[r2] = bb::sub(u, x);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < K; ++r) p[r * stride] = v[r];
+}
+
+__global__ void k_ntt_pass(const uint32_t* __restrict__ in,
+                           long long in_stride, long long m_in,
+                           uint32_t* __restrict__ out, int log_n, int S,
+                           int L, int G, const uint32_t* __restrict__ pre,
+                           const uint32_t* __restrict__ post,
+                           int post_scalar,
+                           const uint32_t* __restrict__ tw_g,
+                           const uint32_t* __restrict__ tw_lo,
+                           const uint32_t* __restrict__ tw_hi, int h,
+                           int spread, int lg_bpr) {
   extern __shared__ uint32_t sh[];
-  const int T = 1 << tile_log;
-  uint32_t* base = data + (long long)blockIdx.x * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) sh[i] = base[i];
+  const int T = 1 << L;
+  const int GP = G + 1;            // odd row stride: no bank conflicts
+  const int lgG = __ffs(G) - 1;
+  uint32_t* tile = sh;             // T rows of GP words
+  uint32_t* tw = sh + T * GP;      // w_(2^L)^e, e < T / 2
+  for (int i = threadIdx.x; i < (T >> 1); i += blockDim.x) tw[i] = tw_g[i];
+  const long long row = (long long)blockIdx.x >> lg_bpr;
+  const long long blk = (long long)blockIdx.x & ((1ll << lg_bpr) - 1);
+  uint32_t* orow = out + (row << log_n);
+  const int total = T << lgG;
+  const long long o = blk << lgG;  // pass 1: first tile (reversed index)
+  long long base0 = 0;             // pass p > 1: first element
+  uint32_t col0 = 0;
+  // spread (pass 1 with m_in <= 2^(log_n - 3), an LDE of blowup 8 or
+  // more: `spread_first_pass` in ops/ntt.py): every nonzero input sits at a
+  // tile position that is a multiple of 8, so stages 0-2 only copy it to
+  // its 8 neighbours; the load does that copy and the register rounds
+  // start at stage 3
+  if (S == 0) {
+    const uint32_t* irow = in + row * in_stride;
+    const int lgc = spread ? 3 : 0;
+    for (int idx = threadIdx.x; idx < (total >> lgc); idx += blockDim.x) {
+      const int g = idx & (G - 1);
+      const int l = (idx >> lgG) << lgc;
+      const long long j = ((long long)rev_bits(l, L) << (log_n - L)) + o + g;
+      uint32_t v = 0u;
+      if (j < m_in) {
+        v = irow[j];
+        if (pre != nullptr) v = bb::mul(v, pre[j]);
+      }
+      for (int c = 0; c < (1 << lgc); ++c) tile[(l + c) * GP + g] = v;
+    }
+  } else {
+    const int lg_ncg = S - lgG;    // column groups per block of 2^(S+L)
+    const long long hiB = blk >> lg_ncg;
+    col0 = (uint32_t)(blk & ((1ll << lg_ncg) - 1)) << lgG;
+    base0 = (hiB << (S + L)) + col0;
+    const uint32_t emask = (1u << (S + L)) - 1u;
+    const uint32_t hmask = (1u << h) - 1u;
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int g = idx & (G - 1);
+      const int jj = idx >> lgG;
+      const uint32_t v = orow[base0 + ((long long)jj << S) + g];
+      const uint32_t e = (rev_bits(jj, L) * (col0 + g)) & emask;
+      const uint32_t w = bb::mul(__ldg(tw_lo + (e & hmask)),
+                                 __ldg(tw_hi + (e >> h)));
+      tile[jj * GP + g] = bb::mul(v, w);
+    }
+  }
   __syncthreads();
-  for (int s = 0; s < tile_log; ++s) {
-    const int half = 1 << s;
-    const uint32_t* w = tw + (half - 1);
-    for (int t = threadIdx.x; t < T / 2; t += blockDim.x) {
-      int j = t & (half - 1);
-      int i0 = ((t >> s) << (s + 1)) + j;
-      uint32_t u = sh[i0];
-      uint32_t v = bb::mul(sh[i0 + half], w[j]);
-      sh[i0] = bb::add(u, v);
-      sh[i0 + half] = bb::sub(u, v);
+  for (int sa = spread ? 3 : 0; sa < L; sa += RADIX_LOG) {
+    const int R = L - sa < RADIX_LOG ? L - sa : RADIX_LOG;
+    const int units = G << (L - R);
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      const int g = u & (G - 1);
+      const int q = u >> lgG;
+#if NTT_RADIX_LOG >= 4
+      if (R == 4)
+        radix_round<4>(tile, tw, GP, g, q, sa, L);
+      else
+#endif
+      if (R == 3)
+        radix_round<3>(tile, tw, GP, g, q, sa, L);
+      else if (R == 2)
+        radix_round<2>(tile, tw, GP, g, q, sa, L);
+      else
+        radix_round<1>(tile, tw, GP, g, q, sa, L);
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < T; i += blockDim.x) base[i] = sh[i];
-}
-
-// Stages [s0, s0 + L) in shared memory.  A tile holds, for one row, the
-// elements i = hi * 2^(s0+L) + j * 2^s0 + base0 + g (j < 2^L, g < GROUP):
-// every butterfly of those stages pairs two elements of one tile, and the
-// GROUP consecutive columns make each global read a full 32-byte sector.
-__global__ void k_stages_strided(uint32_t* __restrict__ data,
-                                 const uint32_t* __restrict__ tw, int log_n,
-                                 int s0, int L) {
-  extern __shared__ uint32_t sh[];
-  const int T = GROUP << L;
-  long long b = blockIdx.x;
-  const long long ngroups = (1ll << s0) / GROUP;
-  const long long nhi = 1ll << (log_n - s0 - L);
-  const long long bg = b % ngroups;
-  b /= ngroups;
-  const long long hi = b % nhi;
-  const long long row = b / nhi;
-  uint32_t* base = data + (row << log_n) + (hi << (s0 + L)) + bg * GROUP;
-  for (int t = threadIdx.x; t < T; t += blockDim.x)
-    sh[t] = base[((long long)(t / GROUP) << s0) + (t % GROUP)];
-  __syncthreads();
-  for (int ls = 0; ls < L; ++ls) {
-    const int half = 1 << ls;
-    const uint32_t* w = tw + ((1ll << (s0 + ls)) - 1) + bg * GROUP;
-    for (int t = threadIdx.x; t < T / 2; t += blockDim.x) {
-      int g = t % GROUP;
-      int q = t / GROUP;
-      int jl = q & (half - 1);
-      int j0 = ((q >> ls) << (ls + 1)) + jl;
-      int i0 = j0 * GROUP + g;
-      int i1 = i0 + half * GROUP;
-      uint32_t u = sh[i0];
-      uint32_t v = bb::mul(sh[i1], w[((long long)jl << s0) + g]);
-      sh[i0] = bb::add(u, v);
-      sh[i1] = bb::sub(u, v);
+  if (S == 0) {
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int k = idx & (T - 1);
+      const int g = idx >> L;
+      const long long t = rev_bits((uint32_t)(o + g), log_n - L);
+      const long long dst = (t << L) + k;
+      uint32_t v = tile[k * GP + g];
+      if (post != nullptr) v = bb::mul(v, post[post_scalar ? 0 : dst]);
+      orow[dst] = v;
     }
-    __syncthreads();
+  } else {
+    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+      const int g = idx & (G - 1);
+      const int k = idx >> lgG;
+      const long long dst = base0 + ((long long)k << S) + g;
+      uint32_t v = tile[k * GP + g];
+      if (post != nullptr) v = bb::mul(v, post[post_scalar ? 0 : dst]);
+      orow[dst] = v;
+    }
   }
-  for (int t = threadIdx.x; t < T; t += blockDim.x)
-    base[((long long)(t / GROUP) << s0) + (t % GROUP)] = sh[t];
-}
-
-__global__ void k_scale(uint32_t* __restrict__ data,
-                        const uint32_t* __restrict__ post, long long rows,
-                        int log_n, int scalar) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (rows << log_n)) return;
-  uint32_t f = scalar ? post[0] : post[idx & ((1ll << log_n) - 1)];
-  data[idx] = bb::mul(data[idx], f);
-}
-
-inline unsigned blocks_for(long long threads, int per_block) {
-  return (unsigned)((threads + per_block - 1) / per_block);
 }
 
 }  // namespace
 
 extern "C" {
 
-int ntt_prepare(const void* in, void* out, const void* pre, long long rows,
-                long long m_in, long long in_stride, int log_n, int has_pre,
-                cudaStream_t stream) {
-  long long total = rows << log_n;
-  if (total > 0) {
-    k_prepare<<<blocks_for(total, 256), 256, 0, stream>>>(
-        (const uint32_t*)in, (uint32_t*)out,
-        has_pre ? (const uint32_t*)pre : nullptr, rows, m_in, in_stride,
-        log_n);
+// One pass (S, L, G) of the plan over out (rows, 2^log_n); pass 1 reads
+// in (rows, m_in) with row stride in_stride, later passes work in place.
+// tw: w_(2^L)^e, e < 2^(L-1); tw_lo / tw_hi: the pre-twiddle table of
+// w_(2^(S+L)) split at h bits (unused by pass 1); spread: pass 1 copies
+// each input to its 8 neighbours in place of stages 0-2.
+int ntt_pass(const void* in, long long in_stride, long long m_in, void* out,
+             long long rows, int log_n, int S, int L, int G, const void* pre,
+             const void* post, int post_scalar, const void* tw,
+             const void* tw_lo, const void* tw_hi, int h, int spread,
+             cudaStream_t stream) {
+  if (rows <= 0) return (int)cudaGetLastError();
+  const int T = 1 << L;
+  const int lg_bpr = log_n - L - (__builtin_ffs(G) - 1);
+  const long long blocks = rows << lg_bpr;
+  const int R = L < RADIX_LOG ? L : RADIX_LOG;
+  int threads = (G << (L - R));
+  threads = threads < 32 ? 32 : (threads > 512 ? 512 : threads);
+  const int smem = (T * (G + 1) + (T >> 1)) * 4;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k_ntt_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
-}
-
-int ntt_stages(void* data, const void* tw, long long rows, int log_n,
-               cudaStream_t stream) {
-  if (log_n == 0 || rows == 0) return (int)cudaGetLastError();
-  uint32_t* d = (uint32_t*)data;
-  const uint32_t* w = (const uint32_t*)tw;
-  int tile_log = log_n < TILE_LOG ? log_n : TILE_LOG;
-  long long tiles = rows << (log_n - tile_log);
-  int threads = 1 << (tile_log - 1);
-  if (threads < 32) threads = 32;
-  k_stages_shared<<<(unsigned)tiles, threads, (1 << tile_log) * 4, stream>>>(
-      d, w, tile_log);
-  for (int s0 = tile_log; s0 < log_n; s0 += TILE_LOG) {
-    int L = log_n - s0 < TILE_LOG ? log_n - s0 : TILE_LOG;
-    long long blocks = rows * ((1ll << s0) / GROUP) << (log_n - s0 - L);
-    int T = GROUP << L;
-    int nthreads = T / 2 < 512 ? (T / 2 < 32 ? 32 : T / 2) : 512;
-    int smem = T * 4;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          k_stages_strided, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    k_stages_strided<<<(unsigned)blocks, nthreads, smem, stream>>>(
-        d, w, log_n, s0, L);
-  }
-  return (int)cudaGetLastError();
-}
-
-int ntt_scale(void* data, const void* post, long long rows, int log_n,
-              int scalar, cudaStream_t stream) {
-  long long total = rows << log_n;
-  if (total > 0) {
-    k_scale<<<blocks_for(total, 256), 256, 0, stream>>>(
-        (uint32_t*)data, (const uint32_t*)post, rows, log_n, scalar);
-  }
+  k_ntt_pass<<<(unsigned)blocks, threads, smem, stream>>>(
+      (const uint32_t*)in, in_stride, m_in, (uint32_t*)out, log_n, S, L, G,
+      (const uint32_t*)pre, (const uint32_t*)post, post_scalar,
+      (const uint32_t*)tw, (const uint32_t*)tw_lo, (const uint32_t*)tw_hi, h,
+      spread, lg_bpr);
   return (int)cudaGetLastError();
 }
 

@@ -3,28 +3,64 @@
 //
 // Replaces the jax.jit programs ethrex_tpu/ops/poseidon2.py:191 `permute`,
 // :222 `compress` and :232 `hash_leaves`, and the level loop of
-// ethrex_tpu/ops/merkle.py:22-53 (`build_levels_with`/`commit_levels`),
-// which the wrapper (ethrex_tpu_torch/ops/merkle.py) drives one
-// p2_compress_level launch per tree level, keeping every level.
+// ethrex_tpu/ops/merkle.py:22-53 (`build_levels_with`/`commit_levels`).
 //
 // K10 (p2_batched_level) is one level of ethrex_tpu/ops/merkle.py:60
 // `batched_roots`: every tree of a concatenated forest that is still above
 // one node compresses its pairs, and finished roots are copied through, in
 // one launch per global level.
 //
-// Design: one thread per leaf row (or per output node) holds the 16-lane
-// state in registers for the whole permutation; the round constants and
-// the internal diagonal mu live in __constant__ memory, read uniformly by
-// every thread of a warp.  The leaf hash reads its rows through strides
-// (row, column and column-group), so the prover hashes the column-major
-// LDE and the paired FRI codeword in place, with no transposed copy.
+// Bound on this card: 32-bit integer multiplies.  One permutation is 772
+// Montgomery products (five IMAD issue slots each: see babybear.cuh
+// `mul`); the state proof's leaves alone are 63 M permutations.  The
+// design keeps everything else off the multiply pipe's back:
+//   * every modular add, subtract and REDC tail is an add plus one DPX
+//     add-min (babybear.cuh), about 4.1 k ALU instructions a permutation
+//     against 2.3 k multiplies, so the ALU pipe no longer outruns the IMAD
+//     pipe.  Every add stays reduced: p > 2^30.9, so a sum left below 2p
+//     overflows 32 bits at its next add (3p > 2^32) and breaks the
+//     product's bound if it is squared (x^2 < p 2^32 needs x < 1.37p), and
+//     each linear-layer sum here feeds one or the other; with the add-min
+//     the reduction is one instruction, where a lazy sum saves only that;
+//   * the S-box is x^2, then x^3 = x^2 x beside x^4 = x^2 x^2, then
+//     x^4 x^3 (three products deep, not four);
+//   * an internal round sums lanes 1..15 as a tree while lane 0's S-box
+//     runs (the two are independent), then adds lane 0 last;
+//   * the round loops stay rolled: unrolling the 13 internal rounds
+//     (P2_UNROLL_INT) or the external ones (P2_UNROLL_EXT) measured
+//     slower on the card (tools/p2_variants.py), the larger code costing
+//     more than the constant-bank operands save.
+// One thread holds one 16-lane state in registers for a whole permutation.
+// The leaf hash reads its rows through strides (row, column and
+// column-group), so the prover hashes the column-major LDE and the paired
+// FRI codeword in place, with no transposed copy.
 //
-// Bound on this card: 32-bit integer multiplies.  One permutation is
-// about 772 Montgomery products (each three multiply instructions, five
-// IMAD issue slots: see babybear.cuh `mul`); the state proof runs about
-// 97 M permutations.  Memory traffic is one read of each leaf row and one
-// 32-byte digest write per row.
+// Merkle levels: k_subtree takes S subtrees of 2^k consecutive digests per
+// block, compresses k levels in shared memory and writes every level
+// (the prover keeps them all for its openings); on a large level each
+// thread first compresses its own 8 digests to one node, so the levels
+// where a block's busy threads thin out carry 1/8 of the work.  The
+// wrapper's plan (ethrex_tpu_torch/ops/merkle.py `subtree_plan`) covers a
+// tree of 2^a leaves in ceil(a / 10) launches: 2^22 leaves in 3, not 22.
 #include "babybear.cuh"
+
+#ifndef P2_UNROLL_EXT
+#define P2_UNROLL_EXT 0
+#endif
+#ifndef P2_UNROLL_INT
+#define P2_UNROLL_INT 0
+#endif
+#define P2_PRAGMA(x) _Pragma(#x)
+#if P2_UNROLL_EXT
+#define P2_EXT_LOOP P2_PRAGMA(unroll)
+#else
+#define P2_EXT_LOOP P2_PRAGMA(unroll 1)
+#endif
+#if P2_UNROLL_INT
+#define P2_INT_LOOP P2_PRAGMA(unroll)
+#else
+#define P2_INT_LOOP P2_PRAGMA(unroll 1)
+#endif
 
 __constant__ uint32_t c_ext_rc[8][16];
 __constant__ uint32_t c_int_rc[13];
@@ -34,8 +70,9 @@ namespace {
 
 __device__ __forceinline__ uint32_t sbox(uint32_t x) {
   uint32_t x2 = bb::mul(x, x);
+  uint32_t x3 = bb::mul(x2, x);
   uint32_t x4 = bb::mul(x2, x2);
-  return bb::mul(bb::mul(x4, x2), x);
+  return bb::mul(x4, x3);
 }
 
 __device__ __forceinline__ uint32_t dbl(uint32_t x) { return bb::add(x, x); }
@@ -73,20 +110,29 @@ __device__ __forceinline__ void ext_round(uint32_t* s, int r) {
   external_linear(s);
 }
 
+__device__ __forceinline__ void internal_round(uint32_t* s, int r) {
+  const uint32_t x0 = sbox(bb::add(s[0], c_int_rc[r]));
+  // lanes 1..15 summed as a tree, independent of lane 0's S-box chain
+  uint32_t a[8];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) a[j] = bb::add(s[2 * j + 1], s[2 * j + 2]);
+  a[7] = s[15];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = bb::add(a[2 * j], a[2 * j + 1]);
+  const uint32_t rest = bb::add(bb::add(a[0], a[1]), bb::add(a[2], a[3]));
+  const uint32_t tot = bb::add(rest, x0);
+  s[0] = bb::add(tot, bb::mul(x0, c_mu[0]));
+#pragma unroll
+  for (int j = 1; j < 16; ++j) s[j] = bb::add(tot, bb::mul(s[j], c_mu[j]));
+}
+
 __device__ __forceinline__ void permute(uint32_t* s) {
   external_linear(s);
-#pragma unroll 1
+  P2_EXT_LOOP
   for (int r = 0; r < 4; ++r) ext_round(s, r);
-#pragma unroll 1
-  for (int r = 0; r < 13; ++r) {
-    s[0] = sbox(bb::add(s[0], c_int_rc[r]));
-    uint32_t tot = s[0];
-#pragma unroll
-    for (int j = 1; j < 16; ++j) tot = bb::add(tot, s[j]);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) s[j] = bb::add(tot, bb::mul(s[j], c_mu[j]));
-  }
-#pragma unroll 1
+  P2_INT_LOOP
+  for (int r = 0; r < 13; ++r) internal_round(s, r);
+  P2_EXT_LOOP
   for (int r = 4; r < 8; ++r) ext_round(s, r);
 }
 
@@ -102,14 +148,17 @@ __global__ void k_hash_leaves(const uint32_t* __restrict__ in,
   uint32_t s[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) s[j] = 0;
+  int cc = 0;                 // c % inner and c / inner, stepped along c
+  long long goff = 0;
   for (int c0 = 0; c0 < w; c0 += 8) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      int c = c0 + j;
-      if (c < w) {
-        uint32_t v = row[(long long)(c % inner) * col_stride +
-                         (long long)(c / inner) * group_stride];
-        s[j] = bb::add(s[j], v);
+      if (c0 + j < w) {
+        s[j] = bb::add(s[j], row[(long long)cc * col_stride + goff]);
+        if (++cc == inner) {
+          cc = 0;
+          goff += group_stride;
+        }
       }
     }
     permute(s);
@@ -119,35 +168,106 @@ __global__ void k_hash_leaves(const uint32_t* __restrict__ in,
   o[1] = make_uint4(s[4], s[5], s[6], s[7]);
 }
 
+// the parent of the digests at left and right (8 words each) into res[8]
+__device__ __forceinline__ void compress_regs(const uint32_t* left,
+                                              const uint32_t* right,
+                                              uint32_t res[8]) {
+  uint32_t s[16];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint4 a = reinterpret_cast<const uint4*>(left)[q];
+    const uint4 b = reinterpret_cast<const uint4*>(right)[q];
+    s[4 * q] = a.x;
+    s[4 * q + 1] = a.y;
+    s[4 * q + 2] = a.z;
+    s[4 * q + 3] = a.w;
+    s[8 + 4 * q] = b.x;
+    s[8 + 4 * q + 1] = b.y;
+    s[8 + 4 * q + 2] = b.z;
+    s[8 + 4 * q + 3] = b.w;
+  }
+  uint32_t l[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) l[j] = s[j];
+  permute(s);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) res[j] = bb::add(s[j], l[j]);
+}
+
+__device__ __forceinline__ void store8(uint32_t* dst, const uint32_t r[8]) {
+  uint4* o = reinterpret_cast<uint4*>(dst);
+  o[0] = make_uint4(r[0], r[1], r[2], r[3]);
+  o[1] = make_uint4(r[4], r[5], r[6], r[7]);
+}
+
 // two adjacent digests at src (16 words) -> their parent at dst (8 words)
 __device__ __forceinline__ void compress_pair(const uint32_t* __restrict__ pair,
                                               uint32_t* __restrict__ dst) {
-  const uint4* src = reinterpret_cast<const uint4*>(pair);
-  uint32_t s[16];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    uint4 v = src[q];
-    s[4 * q] = v.x;
-    s[4 * q + 1] = v.y;
-    s[4 * q + 2] = v.z;
-    s[4 * q + 3] = v.w;
-  }
-  uint32_t left[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) left[j] = s[j];
-  permute(s);
-  uint4* o = reinterpret_cast<uint4*>(dst);
-  o[0] = make_uint4(bb::add(s[0], left[0]), bb::add(s[1], left[1]),
-                    bb::add(s[2], left[2]), bb::add(s[3], left[3]));
-  o[1] = make_uint4(bb::add(s[4], left[4]), bb::add(s[5], left[5]),
-                    bb::add(s[6], left[6]), bb::add(s[7], left[7]));
+  uint32_t r[8];
+  compress_regs(pair, pair + 8, r);
+  store8(dst, r);
 }
 
-__global__ void k_compress_level(const uint32_t* __restrict__ level,
-                                 uint32_t* __restrict__ out, long long m) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  compress_pair(level + i * 16, out + i * 8);
+// k levels of S subtrees per block.  Subtree st (< S) of block b is tree
+// = b S + st, the 2^k digests in[tree 2^k ...] (8 words each), loaded into
+// shared memory; node i of level j then lives in shared slot i 2^j (the
+// left child's slot, which only its own parent reads), and in output level
+// j, row tree 2^(k-j) + i (level 1 starts at `out`; level j + 1 right
+// after level j, which holds m_in / 2^j rows).
+//   Levels 1..c+1 run serially per thread: thread t of a subtree owns the
+// 2^(c+1) digests from slot t 2^(c+1) and compresses them to one node,
+// 2^(c+1) - 1 compressions with no barrier (every slot it touches is its
+// own), so 2^(c+1) - 1 of every 2^(c+1) compressions run with every
+// thread busy.  Levels c+2..k run one node per thread, numbered densely
+// over the block's subtrees so that the busy threads fill whole warps,
+// with a barrier between levels.  c = 0 is one node per thread throughout.
+__global__ void k_subtree(const uint32_t* __restrict__ in,
+                          uint32_t* __restrict__ out, long long m_in, int k,
+                          int S, int c) {
+  extern __shared__ uint4 sh4[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(sh4);
+  const int lgT = k - c - 1;                       // threads per subtree
+  const uint4* src = reinterpret_cast<const uint4*>(
+      in + ((long long)blockIdx.x * S << k) * 8);
+  const int words4 = (S << k) * 2;                 // uint4s of the block
+  for (int i = threadIdx.x; i < words4; i += blockDim.x) sh4[i] = src[i];
+  __syncthreads();
+  long long level_off = 0;                         // rows before level j
+  long long level_rows = m_in >> 1;
+  for (int j = 1; j <= k; ++j) {
+    const int cnt_log = k - j;                     // nodes per subtree
+    if (j <= c + 1) {
+      const int st = threadIdx.x >> lgT;
+      const int t = threadIdx.x & ((1 << lgT) - 1);
+      const long long tree = (long long)blockIdx.x * S + st;
+      uint32_t* base = sh + ((long long)st << k) * 8;
+      const int per = 1 << (c + 1 - j);            // nodes of this thread
+      for (int q = 0; q < per; ++q) {
+        const int i = t * per + q;
+        uint32_t r[8];
+        compress_regs(base + ((2 * i) << (j - 1)) * 8,
+                      base + ((2 * i + 1) << (j - 1)) * 8, r);
+        store8(base + (i << j) * 8, r);
+        store8(out + (level_off + (tree << cnt_log) + i) * 8, r);
+      }
+    } else {
+      __syncthreads();
+      const int q = threadIdx.x;
+      if (q < (S << cnt_log)) {
+        const int st = q >> cnt_log;
+        const int i = q & ((1 << cnt_log) - 1);
+        const long long tree = (long long)blockIdx.x * S + st;
+        uint32_t* base = sh + ((long long)st << k) * 8;
+        uint32_t r[8];
+        compress_regs(base + ((2 * i) << (j - 1)) * 8,
+                      base + ((2 * i + 1) << (j - 1)) * 8, r);
+        store8(base + (i << j) * 8, r);
+        store8(out + (level_off + (tree << cnt_log) + i) * 8, r);
+      }
+    }
+    level_off += level_rows;
+    level_rows >>= 1;
+  }
 }
 
 // One level of a forest.  plan holds, for T trees, out_start[0..T] (the
@@ -203,13 +323,23 @@ int p2_hash_leaves(const void* in, void* out, long long m, int w,
   return (int)cudaGetLastError();
 }
 
-// level: (2m, 8) digests -> out: (m, 8)
-int p2_compress_level(const void* level, void* out, long long m,
-                      cudaStream_t stream) {
-  if (m > 0) {
-    k_compress_level<<<(unsigned)((m + 127) / 128), 128, 0, stream>>>(
-        (const uint32_t*)level, (uint32_t*)out, m);
+// k levels of S subtrees of 2^k digests per block, the first c + 1 of
+// them serially per thread: in (m_in, 8) -> levels 1..k written back to
+// back from out; m_in a multiple of S 2^k, 0 <= c < k
+int p2_merkle_subtree(const void* in, void* out, long long m_in, int k,
+                      int S, int c, cudaStream_t stream) {
+  if (m_in <= 0 || k <= 0 || c < 0 || c >= k)
+    return m_in <= 0 ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
+  const long long blocks = m_in / ((long long)S << k);
+  const int threads = S << (k - c - 1);
+  const int smem = (S << k) * 32;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k_subtree, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  k_subtree<<<(unsigned)blocks, threads, smem, stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, m_in, k, S, c);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,7 @@ LIB_NAME = "libethrex_kernels.so"
 KERNELS = {
     "ntt": "csrc/ntt.cu",
     "poseidon2_hash_leaves": "csrc/poseidon2.cu",
-    "poseidon2_compress_level": "csrc/poseidon2.cu",
+    "poseidon2_merkle_subtree": "csrc/poseidon2.cu",
     "mod_matmul": "csrc/mod_matmul.cu",
     "fri_fold": "csrc/fri_fold.cu",
     "air_constraints": "stark/air_codegen.py",
@@ -50,6 +50,10 @@ KERNELS = {
     "quotient_combine": "csrc/quotient_combine.cu",
     "merkle_batched_level": "csrc/poseidon2.cu",
     "ext_poly_eval": "csrc/ext_poly_eval.cu",
+    "ext_inv": "csrc/ext_inv.cu",
+    "ext_batch_inv": "csrc/ext_inv.cu",
+    "eval_poly_at": "csrc/poly_eval.cu",
+    "to_mont_cols": "csrc/to_mont.cu",
 }
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -140,12 +144,11 @@ _L = ctypes.c_longlong
 
 # C entry -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "ntt_prepare": [_P, _P, _P, _L, _L, _L, _I, _I, _P],
-    "ntt_stages": [_P, _P, _L, _I, _P],
-    "ntt_scale": [_P, _P, _L, _I, _I, _P],
+    "ntt_pass": [_P, _L, _L, _P, _L, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                 _I, _I, _P],
     "p2_set_constants": [_P, _P, _P],
     "p2_hash_leaves": [_P, _P, _L, _I, _L, _L, _I, _L, _P],
-    "p2_compress_level": [_P, _P, _L, _P],
+    "p2_merkle_subtree": [_P, _P, _L, _I, _I, _I, _P],
     "mod_matmul_rows": [_P, _P, _P, _L, _L, _I, _L, _L, _I, _P],
     "mod_matmul_splitk": [_P, _P, _P, _P, _L, _L, _I, _L, _L, _I, _I, _P],
     "fri_fold": [_P, _P, _P, _P, _P, _L, _P],
@@ -156,6 +159,10 @@ _SIGNATURES = {
     "p2_batched_level": [_P, _P, _P, _I, _L, _P],
     "ext_powers_table": [_P, _P, _P, _L, _I, _P],
     "ext_poly_eval": [_P, _L, _L, _L, _P, _P, _I, _L, _I, _I, _P, _P, _P],
+    "ext_inv": [_P, _P, _L, _P],
+    "ext_batch_inv": [_P, _P, _L, _I, _P],
+    "eval_poly_at": [_P, _L, _L, _I, _P, _P, _I, _P, _P],
+    "to_mont_cols": [_P, _P, _L, _L, _L, _P],
 }
 
 

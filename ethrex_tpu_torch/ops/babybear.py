@@ -8,8 +8,9 @@ to int64, where a 31-bit by 31-bit product is exact.  Every operation
 returns the canonical residue, so results equal the JAX functions bit for
 bit whatever the order of the arithmetic.
 
-Two kernels live here: `mod_matmul` (K3, `csrc/mod_matmul.cu`) and
-`batch_mont_inv` (K7, `csrc/batch_inv.cu`).  On a CUDA tensor each wrapper
+Three kernels live here: `mod_matmul` (K3, `csrc/mod_matmul.cu`),
+`batch_mont_inv` (K7, `csrc/batch_inv.cu`) and `to_mont_cols` (the
+trace's upload, `csrc/to_mont.cu`).  On a CUDA tensor each wrapper
 launches its kernel; on a CPU tensor it runs the plain version beside it.
 """
 
@@ -147,6 +148,30 @@ def to_mont(a):
 
 def from_mont(a):
     return mont_mul(a, 1)
+
+
+def to_mont_cols_plain(a):
+    """Plain version of `to_mont_cols`."""
+    return to_mont(a.T.contiguous())
+
+
+def to_mont_cols(a):
+    """(n, w) canonical residues (a trace as uploaded; last stride 1) ->
+    (w, n) Montgomery columns.  Kernel `to_mont_cols` on a CUDA tensor:
+    the transpose and the conversion in one pass."""
+    if a.dim() != 2:
+        raise ValueError("to_mont_cols takes an (n, w) matrix")
+    if a.device.type != "cuda":
+        return to_mont_cols_plain(a)
+    kernels.require_int32_cuda(a, "to_mont_cols")
+    if a.stride(1) != 1:
+        a = a.contiguous()
+    n, w = a.shape
+    out = torch.empty((w, n), dtype=I32, device=a.device)
+    kernels.call("to_mont_cols", a.device, kernels.ptr(a), kernels.ptr(out),
+                 n, w, a.stride(0))
+    kernels.count("to_mont_cols")
+    return out
 
 
 def mont_pow(a, e: int):

@@ -12,6 +12,8 @@ tensor only):
                           (csrc/quotient_combine.cu)
   K11 `powers_table`, `eval_ext_poly_at_ext`  the power table of a point
                           and ext polynomials at it (csrc/ext_poly_eval.cu)
+      `ext_inv_device`, `batch_inv`  inverses, element-wise and batched
+                          (csrc/ext_inv.cu; test-only, on no prover path)
 
 Power tables of a single point start from two short host tables (the chain
 of products is short there) and are expanded on the device.
@@ -227,6 +229,64 @@ def inv_x_minus_zeta(x, zeta):
     nacc = bb.sub(m(nacc, x), e3)
     norm = bb.add(m(nacc, x), e4)
     return scalar_mul(conj, bb.batch_mont_inv(norm))
+
+
+def ext_inv_device_plain(a):
+    """Plain version of `ext_inv_device` (the reference's norm trick)."""
+    conj = mul(mul(frobenius(a, 1), frobenius(a, 2)), frobenius(a, 3))
+    norm = mul(a, conj)                    # base-field valued
+    return scalar_mul(conj, bb.mont_inv(norm[..., 0]))
+
+
+_FR_ALL = np.ascontiguousarray(np.concatenate(_FR), dtype=np.uint32)
+
+
+def _ext_rows(a, name):
+    if a.shape[-1] != DEG:
+        raise ValueError(f"{name}: needs a trailing axis of 4")
+    kernels.require_int32_cuda(a, name)
+    return a.reshape(-1, DEG).contiguous()
+
+
+def ext_inv_device(a):
+    """Inverse of ext elements (..., 4) Montgomery by the norm trick:
+    a^-1 = (a^p a^(p^2) a^(p^3)) / N(a), one base-field Fermat power per
+    element (0 maps to 0).  Kernel `ext_inv` on a CUDA tensor."""
+    if a.device.type != "cuda":
+        return ext_inv_device_plain(a)
+    flat = _ext_rows(a, "ext_inv_device")
+    out = torch.empty_like(flat)
+    kernels.call("ext_inv", a.device, kernels.ptr(flat), kernels.ptr(out),
+                 flat.shape[0], _FR_ALL.ctypes.data)
+    kernels.count("ext_inv")
+    return out.reshape(a.shape)
+
+
+def batch_inv_plain(a):
+    """Plain version of `batch_inv`: the element-wise inverse.  The
+    reference's prefix and suffix scans give the same unique inverses
+    for nonzero elements (its input contract)."""
+    return ext_inv_device_plain(a)
+
+
+# elements per thread of the batched ext inverse: one norm-trick inverse
+# (about 110 products) per chunk against 48 products per element
+_EXT_INV_CHUNK = 16
+
+
+def batch_inv(a):
+    """Inverses of nonzero ext elements (..., 4) Montgomery, by
+    Montgomery's trick over a chunk of elements per thread.  Kernel
+    `ext_batch_inv` on a CUDA tensor (a zero element gets 0)."""
+    if a.device.type != "cuda":
+        return batch_inv_plain(a)
+    flat = _ext_rows(a, "batch_inv")
+    out = torch.empty_like(flat)
+    kernels.call("ext_batch_inv", a.device, kernels.ptr(flat),
+                 kernels.ptr(out), flat.shape[0], _EXT_INV_CHUNK,
+                 _FR_ALL.ctypes.data)
+    kernels.count("ext_batch_inv")
+    return out.reshape(a.shape)
 
 
 def eval_ext_poly_at_ext_plain(coeffs, point):

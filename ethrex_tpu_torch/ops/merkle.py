@@ -1,11 +1,12 @@
 """Poseidon2 Merkle tree commitment over BabyBear vectors.
 
 Port of `ethrex_tpu/ops/merkle.py`.  `commit_levels` builds every level
-on the device (kernel K2 through `poseidon2.hash_leaves` and one
-`poseidon2.compress_level` launch per level) and keeps them all, since the
-query openings read siblings from every level.  `batched_roots` builds the
-roots of many trees at once, one launch of kernel K10 per global level
-(the fused prove step's FRI layers).  The host helpers
+on the device and keeps them all, since the query openings read siblings
+from every level: kernel K2 hashes the leaves into one buffer that holds
+every level, then compresses up to 10 levels per launch
+(`poseidon2.merkle_subtree`, planned by `subtree_plan`).  `batched_roots`
+builds the roots of many trees at once, one launch of kernel K10 per
+global level (the fused prove step's FRI layers).  The host helpers
 (`compress_ref`, `hash_leaf_ref`, `verify_opening`, ...) are copies of the
 JAX package's canonical-integer reference.
 """
@@ -22,20 +23,68 @@ from . import poseidon2 as p2
 DIGEST_WIDTH = p2.RATE  # 8 limbs
 
 
+def level_offsets(m: int) -> list[int]:
+    """Row offset of each level of a tree over m leaves in the one buffer
+    `commit_levels` fills: level l (m / 2^l rows) at sum_{i<l} m / 2^i."""
+    offs, off = [], 0
+    while True:
+        offs.append(off)
+        if m == 1:
+            return offs
+        off += m
+        m //= 2
+
+
+def subtree_plan(m: int) -> list[tuple[int, int, int, int]]:
+    """The subtree launches of a tree over m = 2^a leaves: (level in, k
+    levels, subtrees per block, c) each, ceil(a / 10) launches that split
+    the a levels as evenly as possible (2^22 leaves: 8, 7, 7); c + 1 of a
+    launch's levels run serially per thread (`poseidon2.subtree_serial`)."""
+    a = m.bit_length() - 1
+    if a <= 0:
+        return []
+    launches = -(-a // p2.SUBTREE_MAX_LEVELS)
+    plan, level = [], 0
+    for i in range(launches):
+        k = -(-(a - level) // (launches - i))
+        c = p2.subtree_serial(m >> level, k)
+        plan.append((level, k, p2.subtree_width(m >> level, k, c), c))
+        level += k
+    return plan
+
+
 def commit_levels(leaves) -> list:
     """Merkle tree over the rows of `leaves` ((m, w) view, or the grouped
     (G, m, c) form of `poseidon2.hash_leaves`); m a power of two.
 
-    Returns [level_0 (m, 8), ..., root (1, 8)] int32 Montgomery tensors."""
+    Returns [level_0 (m, 8), ..., root (1, 8)] int32 Montgomery tensors:
+    on the card, views of one (2m - 1, 8) buffer."""
     m = leaves.shape[-2]
     if m & (m - 1):
         raise ValueError("leaf count must be a power of two")
-    digests = p2.hash_leaves(leaves)
-    levels = [digests]
-    while digests.shape[0] > 1:
-        digests = p2.compress_level(digests)
-        levels.append(digests)
-    return levels
+    if leaves.device.type != "cuda":
+        digests = p2.hash_leaves(leaves)
+        levels = [digests]
+        while digests.shape[0] > 1:
+            digests = p2.compress_level(digests)
+            levels.append(digests)
+        return levels
+    buf = torch.empty((2 * m - 1, DIGEST_WIDTH), dtype=bb.I32,
+                      device=leaves.device)
+    p2.hash_leaves(leaves, out=buf[:m])
+    return levels_above(buf, m)
+
+
+def levels_above(buf, m: int) -> list:
+    """Fill the levels of a tree over m = 2^a leaf digests in one (2m - 1,
+    8) CUDA buffer whose rows [0, m) hold the digests (level l at
+    `level_offsets(m)[l]`), one subtree launch per `subtree_plan` entry.
+    Returns the level views, leaves first."""
+    offs = level_offsets(m)
+    for level, k, S, c in subtree_plan(m):
+        p2.merkle_subtree(buf[offs[level]:offs[level + 1]],
+                          buf[offs[level + 1]:], k, S, c)
+    return [buf[off:off + (m >> lv)] for lv, off in enumerate(offs)]
 
 
 def _check_sizes(sizes) -> list[int]:

@@ -5,11 +5,13 @@ Port of `ethrex_tpu/ops/ntt.py`.  Every transform is one call of
 
     y = post * NTT_{n_out}(zero_pad(pre * x))        (over the last axis)
 
-which on a CUDA tensor launches kernel K1 (`csrc/ntt.cu`: bit-reversal
-gather with the pre-scale and zero pad fused in, the radix-2 stages, the
-post-scale) and on a CPU tensor runs the plain version, the same in-order
-radix-2 Cooley-Tukey as the JAX function.  An in-order DFT has exactly one
-right answer, so both equal the JAX programs bit for bit.
+which on a CUDA tensor launches kernel K1 (`csrc/ntt.cu`) once per pass of
+`ntt_plan` (two passes up to 2^22 points, three up to 2^33: the bit
+reversal, the pre-scale and the zero pad fused into the first pass's
+loads, the post-scale into the last pass's stores) and on a CPU tensor
+runs the plain version, the same in-order radix-2 Cooley-Tukey as the JAX
+function.  An in-order DFT has exactly one right answer, so both equal the
+JAX programs bit for bit.
 """
 
 from __future__ import annotations
@@ -60,14 +62,6 @@ def _cached(key, device, make):
     return t
 
 
-def _twiddle_table(log_n: int, inverse: bool, device) -> torch.Tensor:
-    """All stage twiddles back to back (stage s at offset 2^s - 1)."""
-    def make():
-        tw = _stage_twiddles(log_n, inverse)
-        return np.concatenate(tw) if tw else np.zeros(1, np.uint32)
-    return _cached(("tw", log_n, inverse), device, make)
-
-
 def scaled_ntt_plain(x, inverse: bool = False, n_out: int | None = None,
                      pre=None, post=None):
     """Plain PyTorch version of `scaled_ntt` (same arguments): the
@@ -100,6 +94,88 @@ def scaled_ntt_plain(x, inverse: bool = False, n_out: int | None = None,
     return x2.reshape(lead + (n,))
 
 
+# the pass plan of kernel K1: at most NTT_MAX_L stages a pass, a tile of
+# at most NTT_TILE_ELEMS words (G columns of 2^L) in shared memory, and
+# G in [1, NTT_MAX_G] neighbouring columns (or tiles) per block so that
+# each global access is a run of G words
+NTT_MAX_L = 11
+NTT_TILE_ELEMS = 1 << 14
+NTT_MAX_G = 32
+NTT_RADIX_LOG = 3            # stages per register round inside a pass
+
+
+def ntt_plan(log_n: int) -> list[tuple[int, int, int]]:
+    """Kernel K1's passes over a 2^log_n-point transform: (S, L, G) each,
+    S the stages done before the pass, L the stages it does, G the
+    columns per block.
+
+    Pass 1 (S = 0) loads G whole tiles of 2^L bit-reversed inputs: input
+    j = rev_L(l) 2^(log_n - L) + o + g for tile position l, so each run of
+    G inputs is contiguous.  Pass p > 1 loads, for G neighbouring columns
+    c, the 2^L elements c + 2^S jj of each block of 2^(S + L), pre-twiddles
+    element jj by w_(2^(S+L))^(rev_L(jj) c) and transforms it in place.
+    Every pass does its L stages as a bit-reversed-input DIT in shared
+    memory, NTT_RADIX_LOG stages per register round."""
+    if log_n == 0:
+        return [(0, 0, 1)]
+    passes = -(-log_n // NTT_MAX_L)
+    plan, S = [], 0
+    for i in range(passes):
+        L = -(-(log_n - S) // (passes - i))
+        avail = (1 << (log_n - L)) if S == 0 else (1 << S)
+        G = max(1, min(NTT_MAX_G, NTT_TILE_ELEMS >> L, avail))
+        plan.append((S, L, G))
+        S += L
+    return plan
+
+
+def spread_first_pass(m: int, log_n: int, L: int) -> bool:
+    """Pass 1 of a transform with m <= n / 8 inputs (an LDE of blowup 8 or
+    more): its nonzero inputs sit at tile positions that are multiples of
+    8, so the kernel's load copies each to its 8 neighbours in place of
+    stages 0-2, and the register rounds start at stage 3."""
+    return L >= 3 and m << 3 <= 1 << log_n
+
+
+def radix_rounds(L: int, start: int = 0) -> list[tuple[int, int]]:
+    """(first stage, stages) of each register round of an L-stage pass
+    whose rounds start at stage `start`."""
+    rounds, sa = [], start
+    while sa < L:
+        R = min(NTT_RADIX_LOG, L - sa)
+        rounds.append((sa, R))
+        sa += R
+    return rounds
+
+
+def pretwiddle_split(log_m: int) -> int:
+    """Low bits h of the two-level table w^e = lo[e % 2^h] * hi[e >> h]
+    over e < 2^log_m."""
+    return (log_m + 1) // 2
+
+
+def _root(log_n: int, inverse: bool) -> int:
+    root = bb.root_of_unity(log_n)
+    return bb.inv_host(root) if inverse else root
+
+
+def _local_twiddles(L: int, inverse: bool, device):
+    """w_(2^L)^e for e < 2^(L-1) (Montgomery): the butterflies of a pass."""
+    return _cached(("ltw", L, inverse), device, lambda: bb.to_mont_host(
+        bb.powers_host(_root(L, inverse), max(1, (1 << L) // 2))))
+
+
+def _pretwiddle_tables(log_m: int, inverse: bool, device):
+    """(lo, hi) with lo[e] = w^e, hi[e] = w^(e 2^h), w = w_(2^log_m)."""
+    h = pretwiddle_split(log_m)
+    w = _root(log_m, inverse)
+    lo = _cached(("ptw_lo", log_m, inverse), device, lambda: bb.to_mont_host(
+        bb.powers_host(w, 1 << h)))
+    hi = _cached(("ptw_hi", log_m, inverse), device, lambda: bb.to_mont_host(
+        bb.powers_host(pow(w, 1 << h, bb.P), 1 << (log_m - h))))
+    return lo, hi, h
+
+
 def scaled_ntt(x, inverse: bool = False, n_out: int | None = None,
                pre=None, post=None):
     """post * NTT_{n_out}(zero_pad(pre * x)) over the last axis of x.
@@ -121,24 +197,35 @@ def scaled_ntt(x, inverse: bool = False, n_out: int | None = None,
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     rows = x2.shape[0]
-    out = torch.empty((rows, n), dtype=bb.I32, device=x.device)
     dev = x.device
+    out = torch.empty((rows, n), dtype=bb.I32, device=dev)
     if pre is not None:
         pre = pre.contiguous()
         if pre.numel() != m:
             raise ValueError("pre-scale length must equal the input length")
-    kernels.call("ntt_prepare", dev, kernels.ptr(x2), kernels.ptr(out),
-                 kernels.ptr(pre) if pre is not None else None, rows, m,
-                 x2.stride(0), log_n, 1 if pre is not None else 0)
-    kernels.call("ntt_stages", dev, kernels.ptr(out),
-                 kernels.ptr(_twiddle_table(log_n, inverse, dev)), rows,
-                 log_n)
     if post is not None:
         post = post.contiguous()
         if post.numel() not in (1, n):
             raise ValueError("post-scale length must be 1 or n_out")
-        kernels.call("ntt_scale", dev, kernels.ptr(out), kernels.ptr(post),
-                     rows, log_n, 1 if post.numel() == 1 else 0)
+    if rows == 0:
+        return out.reshape(lead + (n,))
+    plan = ntt_plan(log_n)
+    for i, (S, L, G) in enumerate(plan):
+        first, last = i == 0, i == len(plan) - 1
+        tw = _local_twiddles(L, inverse, dev)
+        if first:
+            lo = hi = tw
+            h = 0
+        else:
+            lo, hi, h = _pretwiddle_tables(S + L, inverse, dev)
+        kernels.call(
+            "ntt_pass", dev, kernels.ptr(x2) if first else None,
+            x2.stride(0), m, kernels.ptr(out), rows, log_n, S, L, G,
+            kernels.ptr(pre) if first and pre is not None else None,
+            kernels.ptr(post) if last and post is not None else None,
+            1 if post is not None and post.numel() == 1 else 0,
+            kernels.ptr(tw), kernels.ptr(lo), kernels.ptr(hi), h,
+            1 if first and spread_first_pass(m, log_n, L) else 0)
     kernels.count("ntt")
     return out.reshape(lead + (n,))
 
@@ -208,6 +295,56 @@ def coset_evals_from_coeffs(coeffs, n_out: int, shift: int = bb.GENERATOR):
     pre = _cached(("cpow_m", log_out, shift, m), coeffs.device,
                   lambda: _coset_powers_np(log_out, shift)[:m])
     return scaled_ntt(coeffs, n_out=n_out, pre=pre)
+
+
+def _point_mont(point) -> int:
+    """A base-field point given in Montgomery form (int or 0-dim tensor)
+    -> its canonical value."""
+    if isinstance(point, torch.Tensor):
+        point = int(point.item())
+    return int(bb.from_mont_host(np.array([int(point) & 0xFFFFFFFF],
+                                          dtype=np.uint32))[0])
+
+
+def eval_poly_at_plain(coeffs, point):
+    """Plain version of `eval_poly_at`: the power table times the
+    coefficients, summed mod p."""
+    n = coeffs.shape[-1]
+    pows = bb.from_numpy(bb.to_mont_host(bb.powers_host(_point_mont(point),
+                                                        n)), coeffs.device)
+    return bb.sum_mod(bb.mont_mul(coeffs, pows), dim=-1)
+
+
+def eval_poly_at(coeffs, point):
+    """Polynomials at one base-field point: coeffs (..., n) Montgomery,
+    point a Montgomery scalar (int or 0-dim tensor) -> (...) Montgomery.
+    The reference runs a Horner scan; the value is unique, so any order
+    of the sum gives it.  Kernel `eval_poly_at` on a CUDA tensor: one
+    block per row over two short power tables."""
+    if coeffs.device.type != "cuda":
+        return eval_poly_at_plain(coeffs, point)
+    kernels.require_int32_cuda(coeffs, "eval_poly_at")
+    n = coeffs.shape[-1]
+    lead = coeffs.shape[:-1]
+    c = coeffs.reshape(-1, n)
+    if c.stride(-1) != 1:
+        c = c.contiguous()
+    rows = c.shape[0]
+    dev = coeffs.device
+    x = _point_mont(point)
+    lg_blk = max(4, (max(n, 1).bit_length() + 1) // 2)
+    nb = max(1, -(-n // (1 << lg_blk)))
+    small = bb.from_numpy(bb.to_mont_host(bb.powers_host(x, 1 << lg_blk)),
+                          dev)
+    big = bb.from_numpy(bb.to_mont_host(bb.powers_host(
+        pow(x, 1 << lg_blk, bb.P), nb)), dev)
+    out = torch.empty((rows,), dtype=bb.I32, device=dev)
+    if rows:
+        kernels.call("eval_poly_at", dev, kernels.ptr(c), c.stride(0), n,
+                     rows, kernels.ptr(small), kernels.ptr(big), lg_blk,
+                     kernels.ptr(out))
+    kernels.count("eval_poly_at")
+    return out.reshape(lead)
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ Port of `ethrex_tpu/ops/poseidon2.py`: the same SHAKE-256-derived round
 constants and internal diagonal (WIDTH 16, RATE 8, 4 + 13 + 4 rounds), the
 same external M4 chain and internal J + diag(mu) layer.  `permute_ref` is a
 copy of the host reference; `permute` / `compress` are plain PyTorch over
-(..., 16) int32 Montgomery tensors.  `hash_leaves` and `compress_level` are
-the wrappers of kernel K2 (`csrc/poseidon2.cu`): on a CUDA tensor they
-launch it, on a CPU tensor they run the plain version.
+(..., 16) int32 Montgomery tensors.  `hash_leaves`, `compress_level` and
+`merkle_subtree` are the wrappers of kernel K2 (`csrc/poseidon2.cu`): on a
+CUDA tensor they launch it, on a CPU tensor the first two run the plain
+version.
 """
 
 from __future__ import annotations
@@ -241,21 +242,30 @@ def _upload_constants(device) -> None:
     _constants_on.add(idx)
 
 
-def hash_leaves(leaves):
+def hash_leaves(leaves, out=None):
     """Sponge-hash rows of field elements to 8-limb digests.
 
     leaves: (m, w) int32 Montgomery, any strides; or (G, m, c), whose row
     i is the concatenation over g of leaves[g, i, :] (the FRI layer's
     lo/hi pairing read in place).  Rows are zero-padded to a multiple of
-    RATE.  Returns (m, 8) contiguous.  Kernel K2 on a CUDA tensor."""
+    RATE.  Returns (m, 8) contiguous, written into `out` when given (a
+    contiguous (m, 8) tensor, e.g. the leaf level of a Merkle buffer).
+    Kernel K2 on a CUDA tensor."""
     if leaves.device.type != "cuda":
-        return hash_leaves_plain(leaves)
+        res = hash_leaves_plain(leaves)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
     if leaves.dim() == 2:
         leaves = leaves.unsqueeze(0)
     g, m, inner = leaves.shape
     w = g * inner
     kernels.require_int32_cuda(leaves, "hash_leaves")
-    out = torch.empty((m, RATE), dtype=bb.I32, device=leaves.device)
+    if out is None:
+        out = torch.empty((m, RATE), dtype=bb.I32, device=leaves.device)
+    elif out.shape != (m, RATE) or not out.is_contiguous():
+        raise ValueError("out must be a contiguous (m, 8) tensor")
     _upload_constants(leaves.device)
     kernels.call("p2_hash_leaves", leaves.device, kernels.ptr(leaves),
                  kernels.ptr(out), m, w, leaves.stride(1), leaves.stride(2),
@@ -264,19 +274,71 @@ def hash_leaves(leaves):
     return out
 
 
+# levels a subtree launch covers at most (a block's 2^k digests, k <= 10),
+# the threads a block aims for, and the levels each thread compresses
+# serially on a level of at least SUBTREE_SERIAL_MIN digests (c + 1 = 3:
+# its own 8 digests to one node)
+SUBTREE_MAX_LEVELS = 10
+SUBTREE_THREADS = 128
+SUBTREE_SERIAL = 2
+SUBTREE_SERIAL_MIN = 1 << 20
+
+
+def subtree_serial(m_in: int, k: int) -> int:
+    """c of a k-level launch over m_in digests: SUBTREE_SERIAL on a
+    level large enough to fill the card with blocks, else 0."""
+    return SUBTREE_SERIAL if m_in >= SUBTREE_SERIAL_MIN and \
+        k > SUBTREE_SERIAL else 0
+
+
+def subtree_width(m_in: int, k: int, c: int = 0) -> int:
+    """Subtrees per block of a k-level launch over m_in digests (2^(k-c-1)
+    threads each): enough for SUBTREE_THREADS threads, a power of two
+    dividing m_in / 2^k."""
+    span = m_in >> k
+    S = max(1, SUBTREE_THREADS >> (k - c - 1))
+    while S > 1 and (span % S or S > span):
+        S >>= 1
+    return S
+
+
+def merkle_subtree(level, out, k: int, S: int | None = None,
+                   c: int = 0) -> None:
+    """Compress k Merkle levels above `level` ((m_in, 8), m_in a multiple
+    of 2^k) into `out`: a contiguous buffer of m_in/2 + ... + m_in/2^k
+    rows, level 1 first; S subtrees per block (default `subtree_width`),
+    the first c + 1 levels serially per thread.  Kernel K2 (`k_subtree`);
+    CUDA tensors only."""
+    kernels.require_int32_cuda(level, "merkle_subtree level")
+    kernels.require_int32_cuda(out, "merkle_subtree out")
+    m_in = level.shape[0]
+    if not 1 <= k <= SUBTREE_MAX_LEVELS or m_in % (1 << k) or \
+            not 0 <= c < k:
+        raise ValueError(f"cannot compress {k} levels above {m_in} digests "
+                         f"({c + 1} serially)")
+    rows = sum(m_in >> j for j in range(1, k + 1))
+    if out.shape[0] < rows or not (level.is_contiguous()
+                                   and out.is_contiguous()):
+        raise ValueError("subtree buffers must be contiguous and hold "
+                         f"{rows} output rows")
+    S = subtree_width(m_in, k, c) if S is None else S
+    if S < 1 or (m_in >> k) % S:
+        raise ValueError(f"{S} subtrees per block do not tile {m_in} digests")
+    _upload_constants(level.device)
+    kernels.call("p2_merkle_subtree", level.device, kernels.ptr(level),
+                 kernels.ptr(out), m_in, k, S, c)
+    kernels.count("poseidon2_merkle_subtree")
+
+
 def compress_level(level):
     """One Merkle level: (2m, 8) digests -> (m, 8) parents.
-    Kernel K2 on a CUDA tensor."""
+    Kernel K2 (a one-level subtree launch) on a CUDA tensor."""
     if level.shape[0] % 2 or level.shape[-1] != RATE:
         raise ValueError("a level needs an even number of 8-limb digests")
     if level.device.type != "cuda":
         return compress_level_plain(level)
-    kernels.require_int32_cuda(level, "compress_level")
     level = level.contiguous()
-    m = level.shape[0] // 2
-    out = torch.empty((m, RATE), dtype=bb.I32, device=level.device)
-    _upload_constants(level.device)
-    kernels.call("p2_compress_level", level.device, kernels.ptr(level),
-                 kernels.ptr(out), m)
-    kernels.count("poseidon2_compress_level")
+    out = torch.empty((level.shape[0] // 2, RATE), dtype=bb.I32,
+                      device=level.device)
+    merkle_subtree(level, out, 1)
     return out

@@ -81,7 +81,8 @@ def _mode_of(vm_batch) -> str:
 def prove_vm_stages(records, r_pre, r_post, depth: int, encoded: bytes,
                     vm_batch, proof_format: str, device="cuda",
                     params: StarkParams = PARAMS,
-                    stats: dict | None = None) -> tuple[dict, list, list]:
+                    stats: dict | None = None,
+                    traces: dict | None = None) -> tuple[dict, list, list]:
     """Prove a VM-mode batch whose execution artifacts are given.
 
     records, r_pre, r_post, depth: the state-update log (AccessRecords)
@@ -103,7 +104,9 @@ def prove_vm_stages(records, r_pre, r_post, depth: int, encoded: bytes,
     STARKs in aggregation order, with their full proofs (the formats past
     `stark` strip the Merkle paths of `out`'s copies).  With `stats` a
     dict, it receives each proof's host walls (public inputs, trace) and
-    prover stats, and the aggregation's stats."""
+    prover stats, and the aggregation's stats.  With `traces` a dict, it
+    keeps each proof's (air, trace, public inputs) under the same names
+    ("outer" for the aggregate), so a caller can prove them again."""
     if proof_format not in protocol.FORMATS:
         raise ValueError(f"unknown proof format {proof_format!r}")
     st = stats if stats is not None else {}
@@ -116,6 +119,8 @@ def prove_vm_stages(records, r_pre, r_post, depth: int, encoded: bytes,
         t2 = time.perf_counter()
         proof, pst = stark_prover.prove_with_stats(air, trace, pub, params,
                                                    device)
+        if traces is not None:
+            traces[name] = (air, trace, pub)
         del trace
         st[name] = {"pub_s": t1 - t0, "trace_s": t2 - t1, **pst}
         return proof, pub
@@ -165,7 +170,7 @@ def prove_vm_stages(records, r_pre, r_post, depth: int, encoded: bytes,
     proofs = [state_proof, bind_proof, vm_proof] + \
         ([tok_proof] if tok_proof else []) + bc_proofs
     fmt = prove_formats(airs, proofs, encoded, proof_format, device=device,
-                        params=params, stats=st)
+                        params=params, stats=st, traces=traces)
     if "inner" in fmt:
         inners = fmt.pop("inner")
         out["state_proof"], out["proof"], out["vm_proof"] = inners[:3]
@@ -183,7 +188,8 @@ def prove_formats(airs: list, proofs: list[dict], encoded: bytes,
                   proof_format: str, device="cuda",
                   params: StarkParams = PARAMS,
                   outer_params: StarkParams | None = None,
-                  stats: dict | None = None) -> dict:
+                  stats: dict | None = None,
+                  traces: dict | None = None) -> dict:
     """The batch-proof entries of `proof_format` for inner proofs already
     made with `params`:
 
@@ -197,7 +203,8 @@ def prove_formats(airs: list, proofs: list[dict], encoded: bytes,
     Runs on `device` ("cuda" unless the caller asks for the CPU).  The
     outer STARK uses `outer_params` (default: `params`, as the reference
     backend does).  If `stats` is a dict it receives the aggregation's
-    statistics under "aggregate"."""
+    statistics under "aggregate"; if `traces` is a dict it keeps the
+    outer STARK's (air, trace, public inputs) under "outer"."""
     if proof_format not in protocol.FORMATS:
         raise ValueError(f"unknown proof format {proof_format!r}")
     if len(airs) != len(proofs):
@@ -206,7 +213,7 @@ def prove_formats(airs: list, proofs: list[dict], encoded: bytes,
         return {}
     agg_stats: dict = {}
     agg = agg_mod.aggregate(airs, proofs, params, outer_params,
-                            device=device, stats=agg_stats)
+                            device=device, stats=agg_stats, traces=traces)
     if stats is not None:
         stats["aggregate"] = agg_stats
     out = {

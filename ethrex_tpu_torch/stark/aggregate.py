@@ -204,12 +204,14 @@ class AggregateProof:
 def aggregate(airs: list[Air], proofs: list[dict],
               params: StarkParams = StarkParams(),
               outer_params: StarkParams | None = None,
-              device="cuda", stats: dict | None = None) -> AggregateProof:
+              device="cuda", stats: dict | None = None,
+              traces: dict | None = None) -> AggregateProof:
     """Prove the aggregate: one FriVerifyAir STARK covering every FRI
     query opening of every inner proof, on `device` ("cuda" unless the
     caller asks for the CPU).  If `stats` is a dict it receives the host
     trace-generation wall, the outer trace shape and the outer prover's
-    phase walls."""
+    phase walls; if `traces` is a dict it keeps the outer STARK's (air,
+    trace, public inputs) under "outer"."""
     if not proofs:
         raise AggregationError("nothing to aggregate")
     items = []
@@ -230,6 +232,8 @@ def aggregate(airs: list[Air], proofs: list[dict],
     trace_s = time.perf_counter() - t0
     outer, outer_stats = stark_prover.prove_with_stats(
         air_out, trace, digest, outer_params or params, device=device)
+    if traces is not None:
+        traces["outer"] = (air_out, trace, digest)
     if stats is not None:
         stats.update(trace_s=trace_s, items=len(items),
                      trace_shape=tuple(trace.shape), outer=outer_stats)

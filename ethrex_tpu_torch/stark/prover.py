@@ -22,7 +22,8 @@ checkpoint store, the fault legs and degradation ladder, tracing spans and
 mesh sharding (with checkpointing off they never change the proof bytes).
 
 Phase walls are bounded by `torch.cuda.synchronize()` on the card and
-returned by `prove_with_stats`.  The build-time tables (periodic-column
+returned by `prove_with_stats`, with each phase's span on the host's
+`time.perf_counter()` clock (so a profiler trace can be cut by phase).  The build-time tables (periodic-column
 LDEs, the divisor inverses, the domain points) are cached per
 (air.cache_key(), log_n, log_blowup, shift, device).
 """
@@ -105,7 +106,7 @@ def _tables(air: Air, log_n: int, lb: int, shift: int, device) -> _Tables:
     stack = torch.cat([xn_minus_1, x_minus_glast]
                       + [canon_minus(pow(g_n, r, bb.P))
                          for (r, _) in bounds_struct])
-    inv_stack = bb.batch_mont_inv(bb.to_mont(stack))
+    inv_stack = bb.batch_mont_inv(bb.to_mont_cols(stack[:, None])[0])
     del stack
 
     periodic_cols = air.periodic_columns(n)
@@ -125,8 +126,9 @@ def _tables(air: Air, log_n: int, lb: int, shift: int, device) -> _Tables:
             bb.from_numpy(np.stack(rows), device), N, shift=shift)
     tables = _Tables(
         periodic=periodic, inv_stack=inv_stack,
-        x_minus_glast=bb.to_mont(x_minus_glast),
-        pts_m=bb.to_mont(pts.to(bb.I32)), bounds_struct=bounds_struct,
+        x_minus_glast=bb.to_mont_cols(x_minus_glast[:, None])[0],
+        pts_m=bb.to_mont_cols(pts.to(bb.I32)[:, None])[0],
+        bounds_struct=bounds_struct,
         num_constraints=air.num_constraints)
     _TABLE_CACHE[key] = tables
     return tables
@@ -213,7 +215,8 @@ def prove(air: Air, trace: np.ndarray, pub_inputs: list[int],
 
 def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
                      params: StarkParams = StarkParams(), device="cuda"):
-    """`prove`, also returning {"phase_s": {phase: wall seconds}, ...}."""
+    """`prove`, also returning {"phase_s": {phase: wall seconds},
+    "phase_spans": [(phase, start, end) on time.perf_counter()], ...}."""
     device = require_cuda(device)
     n, w = trace.shape
     if w != air.width:
@@ -232,6 +235,7 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
     g_n = bb.root_of_unity(log_n)
 
     walls: dict = {}
+    spans: list = []
     clock = [time.perf_counter()]
 
     def mark(name):
@@ -239,6 +243,7 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
             torch.cuda.synchronize(device)
         now = time.perf_counter()
         walls[name] = walls.get(name, 0.0) + (now - clock[0])
+        spans.append((name, clock[0], now))
         clock[0] = now
 
     t_start = clock[0]
@@ -248,7 +253,7 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
     ch = Challenger()
     ch.absorb_elems([n, w, B])
     ch.absorb_elems([v % bb.P for v in pub_inputs])
-    cols = bb.to_mont(bb.from_numpy(trace, device).T.contiguous())
+    cols = bb.to_mont_cols(bb.from_numpy(trace, device))   # (w, n)
     mark("upload")
 
     # ---- 1. trace commitment --------------------------------------------
@@ -331,7 +336,8 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
         "fri": fri_dict,
         "openings": openings,
     }
-    stats = {"phase_s": walls, "total_s": time.perf_counter() - t_start,
+    stats = {"phase_s": walls, "phase_spans": spans,
+             "total_s": time.perf_counter() - t_start,
              "device": str(device), "n": n, "width": w, "N": N,
              "num_constraints": tb.num_constraints}
     return proof, stats

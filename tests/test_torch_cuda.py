@@ -1,6 +1,8 @@
-"""The CUDA kernels K1-K11 against their plain PyTorch versions on the
-card, at small and ragged shapes (chip_smoke.py covers the full-size
-ones); a small aggregate proof, a small VM-mode batch's stage proofs and
+"""The CUDA kernels K1-K11 and the four slice-4 kernels (ext_inv,
+ext_batch_inv, eval_poly_at, to_mont_cols) against their plain PyTorch
+versions on the card, at small and ragged shapes that reach every branch
+of the NTT's pass plan and the Merkle subtree plan (chip_smoke.py covers
+the full-size ones); a small aggregate proof, a small VM-mode batch's stage proofs and
 the fused prove step made on the card against the same made on the CPU.
 
 Bar: bit-equality (torch.equal); all arithmetic is exact.  Every test
@@ -49,15 +51,80 @@ def _field(seed, shape, device):
         device)
 
 
-@pytest.mark.parametrize("log_n", [1, 2, 5, 10, 11, 12, 14])
+@pytest.mark.parametrize("log_n", [0, 1, 2, 5, 10, 11, 12, 14, 20, 23])
 def test_ntt_kernel_equals_plain(dev, log_n):
-    x = _field(log_n, (3, 1 << log_n), dev)
+    # one pass up to 2^11 (G = 1), two (G = 32, 16, 8 by size), three
+    # from 2^23; ragged inputs (m < n_out, odd row counts, scalar post)
+    rows = 3 if log_n < 20 else 1
+    x = _field(log_n, (rows, 1 << log_n), dev)
     pre = _field(100 + log_n, (1 << log_n,), dev)
     post = _field(200 + log_n, (2 << log_n,), dev)
+    one = _field(300 + log_n, (1,), dev)
     for kw in (dict(), dict(inverse=True), dict(n_out=2 << log_n, pre=pre),
-               dict(inverse=True, n_out=2 << log_n, post=post)):
+               dict(inverse=True, n_out=2 << log_n, post=post),
+               dict(n_out=8 << log_n), dict(inverse=True, post=one)):
         got = ntt.scaled_ntt(x, **kw)
         assert torch.equal(got, ntt.scaled_ntt_plain(x, **kw)), kw
+
+
+@pytest.mark.parametrize("m,n_out", [(3, 8), (5, 64), (100, 4096),
+                                     (3000, 1 << 15)])
+def test_ntt_kernel_ragged_zero_pad(dev, m, n_out):
+    x = _field(m, (2, 7, m), dev)[:, 1:6]          # strided rows
+    pre = _field(m + 1, (m,), dev)
+    got = ntt.scaled_ntt(x, n_out=n_out, pre=pre)
+    assert torch.equal(got, ntt.scaled_ntt_plain(x, n_out=n_out, pre=pre))
+
+
+@pytest.mark.parametrize("log_m", [0, 1, 3, 10, 11, 12, 17, 21])
+def test_commit_levels_on_the_card_equal_plain(dev, log_m):
+    from ethrex_tpu_torch.ops import merkle
+
+    cols = _field(log_m, (5, 1 << log_m), dev)
+    got = merkle.commit_levels(cols.T)
+    want = [p2.hash_leaves_plain(cols.T)]
+    while want[-1].shape[0] > 1:
+        want.append(p2.compress_level_plain(want[-1]))
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if log_m == 21:
+        kernels.reset_launches()
+        merkle.commit_levels(cols.T)
+        assert kernels.LAUNCHES["poseidon2_merkle_subtree"] <= 3
+
+
+@pytest.mark.parametrize("m", [2, 6, 128, 1000, 4096])
+def test_compress_level_kernel_equals_plain(dev, m):
+    level = _field(m, (m, 8), dev)
+    assert torch.equal(p2.compress_level(level),
+                       p2.compress_level_plain(level))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 4097])
+def test_ext_inverse_kernels_equal_plain(dev, n):
+    a = _field(n, (n, 4), dev)
+    a[:: max(1, n // 5)] = 0               # zeros map to zero in both
+    assert torch.equal(ext.ext_inv_device(a), ext.ext_inv_device_plain(a))
+    got = ext.batch_inv(a)
+    assert torch.equal(got, ext.batch_inv_plain(a))
+    nz = a.abs().sum(dim=1) != 0
+    one = torch.zeros(4, dtype=torch.int32, device=dev)
+    one[0] = bb.MONT_ONE
+    assert torch.equal(ext.mul(got[nz], a[nz]), one.expand(int(nz.sum()), 4))
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 7), (64, 1 << 12),
+                                    (2, 100003)])
+def test_eval_poly_at_kernel_equals_plain(dev, rows, n):
+    c = _field(rows + n, (rows, n), dev)
+    pt = int(bb.to_mont_host(np.array([987654321]))[0])
+    assert torch.equal(ntt.eval_poly_at(c, pt), ntt.eval_poly_at_plain(c, pt))
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (31, 33), (64, 1), (1000, 278)])
+def test_to_mont_cols_kernel_equals_plain(dev, n, w):
+    a = _field(n * w, (n, w), dev)
+    assert torch.equal(bb.to_mont_cols(a), bb.to_mont_cols_plain(a))
 
 
 @pytest.mark.parametrize("w", [1, 8, 13, 24, 115])
@@ -289,8 +356,9 @@ def test_fused_step_on_the_card_equals_cpu(dev):
     assert torch.equal(troot.cpu(), want[0])
     assert all(torch.equal(a.cpu(), b) for a, b in zip(roots, want[1]))
     assert torch.equal(cw.cpu(), want[2])
-    for name in ("ntt", "poseidon2_hash_leaves", "mod_matmul", "fri_fold",
-                 "deep_compose", "merkle_batched_level", "ext_poly_eval"):
+    for name in ("ntt", "poseidon2_hash_leaves", "poseidon2_merkle_subtree",
+                 "mod_matmul", "fri_fold", "deep_compose",
+                 "merkle_batched_level", "ext_poly_eval"):
         assert kernels.LAUNCHES[name] > 0, name
 
 
@@ -331,7 +399,7 @@ def test_small_vm_stages_on_the_card_equal_cpu(dev):
     on_card, _, _ = gpu_backend.prove_vm_stages(*args, device=dev,
                                                params=params)
     for name in ("air_constraints", "quotient_combine", "deep_compose",
-                 "ext_poly_eval"):
+                 "ext_poly_eval", "to_mont_cols", "poseidon2_merkle_subtree"):
         assert kernels.LAUNCHES[name] > 0, name
     on_cpu, _, _ = gpu_backend.prove_vm_stages(*args, device="cpu",
                                               params=params)

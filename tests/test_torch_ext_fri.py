@@ -45,6 +45,19 @@ def _eq(t, arr):
     return np.array_equal(bb.to_numpy(t), np.asarray(arr))
 
 
+@pytest.mark.parametrize("n", [1, 33, 200])
+def test_ext_inv_device_and_batch_inv_bit_equal(n):
+    a = _field(300 + n, (n, 4))
+    a[a.sum(axis=1) == 0, 0] = 1            # the reference needs nonzero
+    want = np.asarray(jext.batch_inv(a))
+    assert _eq(ext.batch_inv(_t(a)), want)
+    assert _eq(ext.ext_inv_device(_t(a)), np.asarray(jext.ext_inv_device(a)))
+    assert _eq(ext.ext_inv_device(_t(a)), want)
+    # leading axes are kept, as the reference keeps them
+    a3 = a[: (n // 2) * 2].reshape(-1, 2, 4) if n > 1 else a.reshape(1, 4)
+    assert _eq(ext.batch_inv(_t(a3)), np.asarray(jext.batch_inv(a3)))
+
+
 @pytest.mark.parametrize("name", ["add", "sub", "mul"])
 def test_ext_binary_ops_bit_equal(name):
     a, b = _field(1, (50, 4)), _field(2, (50, 4))

@@ -84,3 +84,25 @@ def test_host_interpolation_and_domain_points_match(log_p):
                           jntt.interpolate_host(vals))
     assert np.array_equal(ntt.domain_points(log_p + 2, 31),
                           jntt.domain_points(log_p + 2, 31))
+
+
+@pytest.mark.parametrize("shape", [(1,), (33,), (3, 64), (2, 4, 1000)])
+def test_eval_poly_at_bit_equal(shape):
+    c = _field(80 + shape[-1], shape)
+    pt = int(bb.to_mont_host(np.array([123456789 + shape[-1]]))[0])
+    got = bb.to_numpy(ntt.eval_poly_at(_t(c), pt)).reshape(shape[:-1])
+    want = np.asarray(jntt.eval_poly_at(c, np.uint32(pt)))
+    assert np.array_equal(got, want)
+    # a 0-dim Montgomery tensor names the same point
+    got_t = ntt.eval_poly_at(_t(c), bb.from_numpy(np.uint32(pt), "cpu"))
+    assert np.array_equal(bb.to_numpy(got_t).reshape(shape[:-1]), want)
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (5, 3), (64, 1), (70, 33)])
+def test_to_mont_cols_equals_the_reference_upload(n, w):
+    from ethrex_tpu.ops import babybear as jbb
+
+    trace = _field(90 + w, (n, w))
+    got = bb.to_numpy(bb.to_mont_cols(_t(trace)))
+    want = np.asarray(jbb.to_mont(trace.T.copy()))       # prover.py:754
+    assert got.shape == (w, n) and np.array_equal(got, want)
