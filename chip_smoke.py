@@ -12,11 +12,11 @@ Phases:
      one nvcc per source, all started together;
   3. hold every kernel against its plain PyTorch version on the card, at
      the shapes the main path gives it (bit-equal), and time both with
-     CUDA events, beside each kernel's bound and earlier time: K1 (the
-     coset LDE) and K2 (the leaf hash and the Merkle tree above it) at
-     every distinct shape of the path (state 115 x 2^19, TransferAir
-     278 x 2^20, outer 90 x 2^22, blowup 8; the plain versions on the
-     first 8 rows or 2^20 leaves beyond the state shape); K3, K4 at the
+     CUDA events, beside each kernel's bound: K1 (the coset LDE) and K2
+     (the leaf hash and the Merkle tree above it) at every distinct shape
+     of the path (state 115 x 2^19, TransferAir 278 x 2^20, outer 90 x
+     2^22, blowup 8; the plain versions on the first and the last 8 rows
+     or 2^20 leaves beyond the state shape); K3, K4 at the
      state proof's shapes; K6 once per AIR at its full LDE (the plain
      version of the three largest on a 2^20 or 2^24-point range); K7 on
      the outer divisor stack; K8, K9 and K11 at the state and the outer
@@ -52,8 +52,10 @@ Phases:
   8. K5 against its plain version on the wrap's own MSM inputs; a small
      state proof made on the card equals the same proof made by the plain
      versions on the CPU;
-  9. one JSON line with every kernel's launches (per path), error,
-     times, bound, earlier time and device time on the path, then
+  9. a line with each kernel's time before its current design (from
+     PERF.md; not measured here), one JSON line with every kernel's
+     launches (per path), error, times, bound and device time on the path,
+     then
      {"ok": true, "device": {...}} as the last line.
 
 Any failure raises, so the exit code is not 0 and no result line prints.
@@ -92,10 +94,10 @@ SLOTS_PER_BN254_MUL = 2 * 128 + 8
 BN254_DBL_MULS = 7
 BN254_ADD_MULS = 16
 # each kernel's time at its timed shape before its current design
-# (PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3 at 700 W),
-# printed beside this run's: K1 the state LDE, K2 the state leaves and one
-# tree level (2^22 -> 2^21), K6 TransferAir, K8, K9, K11 the outer shape,
-# K10 the fused step's layers
+# (PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3 at 700 W):
+# not measured by this run, so logged on a line of its own.
+# K1 the state LDE, K2 the state leaves and one tree level (2^22 -> 2^21),
+# K6 TransferAir, K8, K9, K11 the outer shape, K10 the fused step's layers
 EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
               "poseidon2_compress_level": 1.065, "mod_matmul": 3.986,
               "fri_fold": 0.073, "air_constraints": 64.031,
@@ -184,19 +186,22 @@ PLAIN_LEAVES = 1 << 20
 
 
 def ntt_bound(w: int, n: int, N: int) -> tuple[float, str]:
-    """The coset LDE (w, n) -> (w, N) as the prover runs it: an iNTT and
-    the forward transform (its inputs read once, outputs written once;
-    the butterflies and the pre-scale)."""
-    io_bytes = 4 * (w * n + w * n) + 4 * (w * n + w * N)
-    muls = w * ((n // 2) * (n.bit_length() - 1)
-                + (N // 2) * (N.bit_length() - 1) + n)
+    """The coset LDE (w, n) -> (w, N) as the prover runs it: the input
+    read once and the output written once; the iNTT's butterflies, the
+    pre-scale, and the forward transform's butterflies after its first
+    log2(N / n) stages, which only copy (each nonzero input's partner is
+    a zero of the pad)."""
+    log_n = n.bit_length() - 1
+    io_bytes = 4 * (w * n + w * N)
+    muls = w * ((n // 2) * log_n + n + (N // 2) * log_n)
     return bound_ms(io_bytes, muls)
 
 
 def check_ntt_shapes(dev, rng) -> dict:
     """K1: the coset LDE at every distinct shape of the path, timed at the
-    full size and held bit-equal to the plain version (on the first
-    PLAIN_ROWS rows beyond the state shape)."""
+    full size and held bit-equal to the plain version (on the first and
+    the last PLAIN_ROWS rows beyond the state shape: in the TransferAir
+    LDE, rows from 256 on start past 2^31 words)."""
     from ethrex_tpu_torch.ops import babybear as bb
     from ethrex_tpu_torch.ops import ntt
 
@@ -213,17 +218,19 @@ def check_ntt_shapes(dev, rng) -> dict:
 
         r = w if tag == "state" else PLAIN_ROWS
 
-        def plain():
+        def plain(rows=slice(0, r)):
             return ntt.scaled_ntt_plain(ntt.scaled_ntt_plain(
-                x[:r], inverse=True), n_out=N, pre=pre)
+                x[rows], inverse=True), n_out=N, pre=pre)
 
-        got = kern()[:r]
-        want = plain()
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"ntt ({tag} LDE {w} x 2^{log_n}): kernel "
-                                 f"differs from its plain version")
-        del got, want
+        got = kern()
+        held = [slice(0, r)] if r == w else [slice(0, r), slice(w - r, w)]
+        for rows in held:
+            if not torch.equal(got[rows], plain(rows)):
+                raise AssertionError(
+                    f"ntt ({tag} LDE {w} x 2^{log_n}, rows {rows.start}-"
+                    f"{rows.stop - 1}): kernel differs from its plain "
+                    f"version")
+        del got
         torch.cuda.empty_cache()
         ms = cuda_ms(kern, 5)
         pms = cuda_ms(plain, 1) if tag == "state" else None
@@ -232,16 +239,15 @@ def check_ntt_shapes(dev, rng) -> dict:
             tag=tag, shape=f"coset LDE ({w}, 2^{log_n}) -> ({w}, "
             f"2^{log_n + 3})", passes=len(ntt.ntt_plan(log_n))
             + len(ntt.ntt_plan(log_n + 3)), ms=ms, bound_ms=b_ms,
-            bound_by=b_by, plain_ms=pms, plain_rows=r,
-            earlier_ms=EARLIER_MS["ntt"] if tag == "state" else None))
+            bound_by=b_by, plain_ms=pms,
+            plain_rows=[[h.start, h.stop] for h in held]))
         log(f"[kernels] ntt {tag}: {shapes[-1]}")
         del x
         torch.cuda.empty_cache()
     st = shapes[0]
     return dict(max_abs_err=0, ms=st["ms"], plain_ms=st["plain_ms"],
                 bound_ms=st["bound_ms"], bound_by=st["bound_by"],
-                shape=st["shape"], earlier_ms=EARLIER_MS["ntt"],
-                at_shapes=shapes)
+                shape=st["shape"], at_shapes=shapes)
 
 
 def tree_bound(m: int) -> tuple[float, str]:
@@ -254,8 +260,8 @@ def check_merkle_shapes(dev, rng) -> dict:
     """K2 at every distinct shape of the path: the leaf hash of the LDE
     rows (read in place from the (w, N) columns) and the tree above the
     N leaf digests, timed at the full size and held bit-equal to the
-    plain versions (the leaves on the first PLAIN_LEAVES rows beyond the
-    state shape; the tree whole)."""
+    plain versions (the leaves on the first and the last PLAIN_LEAVES
+    rows beyond the state shape; the tree whole)."""
     from ethrex_tpu_torch.ops import merkle
     from ethrex_tpu_torch.ops import poseidon2 as p2
 
@@ -264,10 +270,14 @@ def check_merkle_shapes(dev, rng) -> dict:
         N = 1 << (log_n + 3)
         lde = field_dev(rng, (w, N), dev)
         M = N if tag == "state" else PLAIN_LEAVES
+        held = [slice(0, M)] if M == N else [slice(0, M), slice(N - M, N)]
         got = p2.hash_leaves(lde.T)
-        if not torch.equal(got[:M], p2.hash_leaves_plain(lde.T[:M])):
-            raise AssertionError(f"poseidon2_hash_leaves ({tag}, {N} x {w})"
-                                 f": kernel differs from its plain version")
+        for rows in held:
+            if not torch.equal(got[rows], p2.hash_leaves_plain(lde.T[rows])):
+                raise AssertionError(
+                    f"poseidon2_hash_leaves ({tag}, {N} x {w}, leaves "
+                    f"{rows.start}-{rows.stop - 1}): kernel differs from "
+                    f"its plain version")
         ms = cuda_ms(lambda: p2.hash_leaves(lde.T), 5)
         pms = cuda_ms(lambda: p2.hash_leaves_plain(lde.T), 1) \
             if tag == "state" else None
@@ -275,9 +285,8 @@ def check_merkle_shapes(dev, rng) -> dict:
         b_ms, b_by = bound_ms(4 * (w * N + 8 * N), perms * 772)
         leaves_rows.append(dict(
             tag=tag, shape=f"leaves ({N}, {w})", ms=ms, bound_ms=b_ms,
-            bound_by=b_by, plain_ms=pms, plain_rows=M,
-            earlier_ms=EARLIER_MS["poseidon2_hash_leaves"] if tag == "state"
-            else None))
+            bound_by=b_by, plain_ms=pms,
+            plain_rows=[[h.start, h.stop] for h in held]))
         log(f"[kernels] poseidon2_hash_leaves {tag}: {leaves_rows[-1]}")
         del lde
         torch.cuda.empty_cache()
@@ -311,9 +320,7 @@ def check_merkle_shapes(dev, rng) -> dict:
         tree_rows.append(dict(
             tag=tag, shape=f"tree over {N} leaves", ms=ms, bound_ms=b_ms,
             bound_by=b_by, plain_ms=pms,
-            launches=len(merkle.subtree_plan(N)), one_level_ms=one,
-            one_level_earlier_ms=EARLIER_MS["poseidon2_compress_level"]
-            if tag == "state" else None))
+            launches=len(merkle.subtree_plan(N)), one_level_ms=one))
         log(f"[kernels] poseidon2_merkle_subtree {tag}: {tree_rows[-1]}")
         del buf, levels
         torch.cuda.empty_cache()
@@ -324,8 +331,6 @@ def check_merkle_shapes(dev, rng) -> dict:
         out[name] = dict(max_abs_err=0, ms=st["ms"], plain_ms=st["plain_ms"],
                          bound_ms=st["bound_ms"], bound_by=st["bound_by"],
                          shape=st["shape"], at_shapes=rs)
-    out["poseidon2_hash_leaves"]["earlier_ms"] = \
-        EARLIER_MS["poseidon2_hash_leaves"]
     return out
 
 
@@ -1401,7 +1406,6 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"],
-            "earlier_ms": row.get("earlier_ms", EARLIER_MS.get(name)),
             "path_device_ms": path_ms.get(name, 0.0),
             **({"at_shapes": row["at_shapes"]} if "at_shapes" in row
                else {}),
@@ -1409,6 +1413,9 @@ def main() -> int:
             **({"at_state_shape": row["at_state_shape"]}
                if "at_state_shape" in row else {}),
         })
+    log(f"[earlier] each kernel's time before its current design "
+        f"(PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3, "
+        f"700 W), not measured in this run: {json.dumps(EARLIER_MS)}")
     log(json.dumps({"kernels": out, "fused_step": {
         str(k): {"ms": v["ms"], "bound_ms": v["bound_ms"]}
         for k, v in fused["rows"].items()},

@@ -20,7 +20,7 @@ constexpr uint32_t W_M = 939524073u;   // 11 (x^4 = W) in Montgomery form
 
 // min(a + b, c) in 32-bit unsigned arithmetic (the sum wraps).  nvcc
 // compiles it for sm_90 to one DPX instruction, VIADDMNMX (the SASS counts
-// of tools/p2_variants.py show it), so every reduction below is one add
+// of tools/p2_sass.py show it), so every reduction below is one add
 // and one add-min, with no compare and no select.
 __device__ __forceinline__ uint32_t addmin(uint32_t a, uint32_t b,
                                            uint32_t c) {

@@ -22,27 +22,25 @@
 //     tile's own roots and writes it back in place, in natural order.
 //     The last pass multiplies by the post-scale as it stores.
 // Inside a pass the L stages run as register rounds of up to three stages
-// (8 words a thread, radix 2^3), with one shared-memory exchange between
-// rounds; the butterflies' roots w_(2^L)^e come from a table of 2^(L-1)
-// words in shared memory.  In pass 1 of an LDE (m_in <= n / 8) stages 0-2
+// (8 words a thread, radix 2^3: the plan's NTT_RADIX_LOG, passed in as
+// `radix`), with one shared-memory exchange between rounds; the
+// butterflies' roots w_(2^L)^e come from a table of 2^(L-1) words in
+// shared memory.  In pass 1 of an LDE (m_in <= n / 8) stages 0-2
 // only copy each input to its 8 neighbours, so the load does the copy and
 // the rounds start at stage 3.  tests/test_torch_kernel_plans.py runs the
 // same indexing in numpy against the JAX package.
 //
-// Bound on this card: memory traffic and the multiplies of the
-// butterflies.  The state LDE (115 x 2^19 -> 2^22) moves 5n + 3N words a
-// row (iNTT: two passes over n; forward: n in, N out, then N in and out),
-// about 6.9 GB.  A block loads its tile, transforms it, then stores it,
-// so within a block memory and arithmetic do not overlap; the kernel
-// runs at about 4x its bound (PERF.md).
+// Bound on this card: the multiplies the LDE needs (the iNTT's, the
+// pre-scale's and the forward transform's after its copy-only stages;
+// chip_smoke.py `ntt_bound`).  The kernel also moves 5n + 3N words a row
+// (iNTT: two passes over n; forward: n in, N out, then N in and out),
+// about 6.9 GB on the state LDE (115 x 2^19 -> 2^22), where the function
+// itself needs only n in and N out.  A block loads its tile, transforms
+// it, then stores it, so within a block memory and arithmetic do not
+// overlap; the kernel runs at about 5x its bound (PERF.md).
 #include "babybear.cuh"
 
 namespace {
-
-#ifndef NTT_RADIX_LOG
-#define NTT_RADIX_LOG 3
-#endif
-constexpr int RADIX_LOG = NTT_RADIX_LOG;
 
 __device__ __forceinline__ uint32_t rev_bits(uint32_t v, int bits) {
   return bits == 0 ? 0u : (__brev(v) >> (32 - bits));
@@ -96,7 +94,7 @@ __global__ void k_ntt_pass(const uint32_t* __restrict__ in,
                            const uint32_t* __restrict__ tw_g,
                            const uint32_t* __restrict__ tw_lo,
                            const uint32_t* __restrict__ tw_hi, int h,
-                           int spread, int lg_bpr) {
+                           int spread, int radix, int lg_bpr) {
   extern __shared__ uint32_t sh[];
   const int T = 1 << L;
   const int GP = G + 1;            // odd row stride: no bank conflicts
@@ -148,17 +146,12 @@ __global__ void k_ntt_pass(const uint32_t* __restrict__ in,
     }
   }
   __syncthreads();
-  for (int sa = spread ? 3 : 0; sa < L; sa += RADIX_LOG) {
-    const int R = L - sa < RADIX_LOG ? L - sa : RADIX_LOG;
+  for (int sa = spread ? 3 : 0; sa < L; sa += radix) {
+    const int R = L - sa < radix ? L - sa : radix;
     const int units = G << (L - R);
     for (int u = threadIdx.x; u < units; u += blockDim.x) {
       const int g = u & (G - 1);
       const int q = u >> lgG;
-#if NTT_RADIX_LOG >= 4
-      if (R == 4)
-        radix_round<4>(tile, tw, GP, g, q, sa, L);
-      else
-#endif
       if (R == 3)
         radix_round<3>(tile, tw, GP, g, q, sa, L);
       else if (R == 2)
@@ -198,17 +191,19 @@ extern "C" {
 // in (rows, m_in) with row stride in_stride, later passes work in place.
 // tw: w_(2^L)^e, e < 2^(L-1); tw_lo / tw_hi: the pre-twiddle table of
 // w_(2^(S+L)) split at h bits (unused by pass 1); spread: pass 1 copies
-// each input to its 8 neighbours in place of stages 0-2.
+// each input to its 8 neighbours in place of stages 0-2; radix: stages
+// per register round (1-3, ops/ntt.py NTT_RADIX_LOG).
 int ntt_pass(const void* in, long long in_stride, long long m_in, void* out,
              long long rows, int log_n, int S, int L, int G, const void* pre,
              const void* post, int post_scalar, const void* tw,
              const void* tw_lo, const void* tw_hi, int h, int spread,
-             cudaStream_t stream) {
+             int radix, cudaStream_t stream) {
+  if (radix < 1 || radix > 3) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return (int)cudaGetLastError();
   const int T = 1 << L;
   const int lg_bpr = log_n - L - (__builtin_ffs(G) - 1);
   const long long blocks = rows << lg_bpr;
-  const int R = L < RADIX_LOG ? L : RADIX_LOG;
+  const int R = L < radix ? L : radix;
   int threads = (G << (L - R));
   threads = threads < 32 ? 32 : (threads > 512 ? 512 : threads);
   const int smem = (T * (G + 1) + (T >> 1)) * 4;
@@ -221,7 +216,7 @@ int ntt_pass(const void* in, long long in_stride, long long m_in, void* out,
       (const uint32_t*)in, in_stride, m_in, (uint32_t*)out, log_n, S, L, G,
       (const uint32_t*)pre, (const uint32_t*)post, post_scalar,
       (const uint32_t*)tw, (const uint32_t*)tw_lo, (const uint32_t*)tw_hi, h,
-      spread, lg_bpr);
+      spread, radix, lg_bpr);
   return (int)cudaGetLastError();
 }
 

@@ -26,10 +26,9 @@
 //     x^4 x^3 (three products deep, not four);
 //   * an internal round sums lanes 1..15 as a tree while lane 0's S-box
 //     runs (the two are independent), then adds lane 0 last;
-//   * the round loops stay rolled: unrolling the 13 internal rounds
-//     (P2_UNROLL_INT) or the external ones (P2_UNROLL_EXT) measured
-//     slower on the card (tools/p2_variants.py), the larger code costing
-//     more than the constant-bank operands save.
+//   * the round loops stay rolled: unrolling the 13 internal rounds or
+//     the external ones measured slower on the card (PERF.md), the
+//     larger code costing more than the constant-bank operands save.
 // One thread holds one 16-lane state in registers for a whole permutation.
 // The leaf hash reads its rows through strides (row, column and
 // column-group), so the prover hashes the column-major LDE and the paired
@@ -43,24 +42,6 @@
 // wrapper's plan (ethrex_tpu_torch/ops/merkle.py `subtree_plan`) covers a
 // tree of 2^a leaves in ceil(a / 10) launches: 2^22 leaves in 3, not 22.
 #include "babybear.cuh"
-
-#ifndef P2_UNROLL_EXT
-#define P2_UNROLL_EXT 0
-#endif
-#ifndef P2_UNROLL_INT
-#define P2_UNROLL_INT 0
-#endif
-#define P2_PRAGMA(x) _Pragma(#x)
-#if P2_UNROLL_EXT
-#define P2_EXT_LOOP P2_PRAGMA(unroll)
-#else
-#define P2_EXT_LOOP P2_PRAGMA(unroll 1)
-#endif
-#if P2_UNROLL_INT
-#define P2_INT_LOOP P2_PRAGMA(unroll)
-#else
-#define P2_INT_LOOP P2_PRAGMA(unroll 1)
-#endif
 
 __constant__ uint32_t c_ext_rc[8][16];
 __constant__ uint32_t c_int_rc[13];
@@ -128,11 +109,11 @@ __device__ __forceinline__ void internal_round(uint32_t* s, int r) {
 
 __device__ __forceinline__ void permute(uint32_t* s) {
   external_linear(s);
-  P2_EXT_LOOP
+#pragma unroll 1
   for (int r = 0; r < 4; ++r) ext_round(s, r);
-  P2_INT_LOOP
+#pragma unroll 1
   for (int r = 0; r < 13; ++r) internal_round(s, r);
-  P2_EXT_LOOP
+#pragma unroll 1
   for (int r = 4; r < 8; ++r) ext_round(s, r);
 }
 

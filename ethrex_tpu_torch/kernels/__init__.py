@@ -145,7 +145,7 @@ _L = ctypes.c_longlong
 # C entry -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "ntt_pass": [_P, _L, _L, _P, _L, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
-                 _I, _I, _P],
+                 _I, _I, _I, _P],
     "p2_set_constants": [_P, _P, _P],
     "p2_hash_leaves": [_P, _P, _L, _I, _L, _L, _I, _L, _P],
     "p2_merkle_subtree": [_P, _P, _L, _I, _I, _I, _P],

@@ -102,6 +102,7 @@ NTT_MAX_L = 11
 NTT_TILE_ELEMS = 1 << 14
 NTT_MAX_G = 32
 NTT_RADIX_LOG = 3            # stages per register round inside a pass
+                             # (the kernel takes 1-3)
 
 
 def ntt_plan(log_n: int) -> list[tuple[int, int, int]]:
@@ -225,7 +226,8 @@ def scaled_ntt(x, inverse: bool = False, n_out: int | None = None,
             kernels.ptr(post) if last and post is not None else None,
             1 if post is not None and post.numel() == 1 else 0,
             kernels.ptr(tw), kernels.ptr(lo), kernels.ptr(hi), h,
-            1 if first and spread_first_pass(m, log_n, L) else 0)
+            1 if first and spread_first_pass(m, log_n, L) else 0,
+            NTT_RADIX_LOG)
     kernels.count("ntt")
     return out.reshape(lead + (n,))
 
@@ -343,7 +345,7 @@ def eval_poly_at(coeffs, point):
         kernels.call("eval_poly_at", dev, kernels.ptr(c), c.stride(0), n,
                      rows, kernels.ptr(small), kernels.ptr(big), lg_blk,
                      kernels.ptr(out))
-    kernels.count("eval_poly_at")
+        kernels.count("eval_poly_at")
     return out.reshape(lead)
 
 

@@ -1,35 +1,27 @@
-"""Time variants of kernel K1 (csrc/ntt.cu) on the card: the radix of its
-register rounds (a compile-time choice) against the pass plan's tile
-budget and stage cap (`ops/ntt.py` NTT_TILE_ELEMS, NTT_MAX_L), at every
-coset-LDE shape of the main path.
+"""Time plan variants of kernel K1 (csrc/ntt.cu) on the card: the pass
+plan's tile budget and stage cap (`ops/ntt.py` NTT_TILE_ELEMS, NTT_MAX_L)
+at every coset-LDE shape of the main path.
 
     python3 -m ethrex_tpu_torch.tools.ntt_variants   # needs one CUDA card
 
-Each build is ntt.cu compiled with its -D flags into a library of its
-own (`build/ethrex_tpu_torch/ntt_variants/`), swapped in for the
-package's kernel library while it runs, with the plan constants patched;
-every output is held bit-equal to the package's build.  Times are CUDA
-events, median of 5 after a warm-up, of the iNTT and the forward
+Each variant patches the plan constants and runs the package's own
+kernel; every output is held bit-equal to the default plan's.  Times are
+CUDA events, median of 5 after a warm-up, of the iNTT and the forward
 transform as the prover runs them.  Prints one JSON line.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
 
 import torch
 
-from .. import kernels
 from ..ops import babybear as bb
 from ..ops import ntt
-from .p2_variants import _median_ms
+from .p2_sass import _median_ms
 
-# -D flags of each build: the radix of the register rounds
-BUILDS = {"radix 2^3": [],
-          "radix 2^4": ["-DNTT_RADIX_LOG=4"]}
 PLANS = {"tile 2^14, L <= 11": (1 << 14, 11),
          "tile 2^13, L <= 11": (1 << 13, 11),
          "tile 2^15, L <= 11": (1 << 15, 11),
@@ -42,31 +34,8 @@ def main() -> int:
         print("ntt_variants: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    kernels.lib()
-    out_dir = kernels.BUILD_DIR / "ntt_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = kernels._nvcc()
-    libs, logs = {}, {}
-    procs = {}
-    for i, (r, flags) in enumerate(BUILDS.items()):
-        so = out_dir / f"libntt_{i}.so"
-        cmd = [nvcc, *kernels.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-I",
-               str(kernels.CSRC), "-shared", str(kernels.CSRC / "ntt.cu"),
-               "-o", str(so)]
-        procs[r] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT))
-    for r, (so, proc) in procs.items():
-        text = proc.communicate()[0].decode(errors="replace")
-        logs[r] = [ln.strip() for ln in text.splitlines()
-                   if "registers" in ln or "spill" in ln]
-        if proc.returncode == 0:
-            h = ctypes.CDLL(str(so))
-            h.ntt_pass.argtypes = kernels._SIGNATURES["ntt_pass"]
-            h.ntt_pass.restype = ctypes.c_int
-            libs[r] = h
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261017)
-    base_lib = kernels._lib
     saved = (ntt.NTT_TILE_ELEMS, ntt.NTT_MAX_L)
     report = {}
     try:
@@ -80,33 +49,26 @@ def main() -> int:
                 return ntt.scaled_ntt(ntt.scaled_ntt(x, inverse=True),
                                       n_out=N, pre=pre)
 
-            kernels._lib = base_lib
             want = lde()
-            for r, h in libs.items():
-                kernels._lib = h
-                for pname, (tile, max_l) in PLANS.items():
-                    ntt.NTT_TILE_ELEMS, ntt.NTT_MAX_L = tile, max_l
-                    got = lde()
-                    eq = bool(torch.equal(got, want))
-                    del got
-                    report.setdefault(tag, {})[f"{r}, {pname}"] = \
-                        dict(bit_equal=eq, ms=_median_ms(lde),
-                             plan=ntt.ntt_plan(log_n) + ntt.ntt_plan(
-                                 log_n + 3))
-                    ntt.NTT_TILE_ELEMS, ntt.NTT_MAX_L = saved
+            for pname, (tile, max_l) in PLANS.items():
+                ntt.NTT_TILE_ELEMS, ntt.NTT_MAX_L = tile, max_l
+                got = lde()
+                eq = bool(torch.equal(got, want))
+                del got
+                report.setdefault(tag, {})[pname] = dict(
+                    bit_equal=eq, ms=_median_ms(lde),
+                    plan=ntt.ntt_plan(log_n) + ntt.ntt_plan(log_n + 3))
+                ntt.NTT_TILE_ELEMS, ntt.NTT_MAX_L = saved
             del x, want
             torch.cuda.empty_cache()
     finally:
-        kernels._lib = base_lib
         ntt.NTT_TILE_ELEMS, ntt.NTT_MAX_L = saved
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(json.dumps({"device": smi, "ptxas": {str(k): v for k, v in
-                                                logs.items()},
-                      "lde": report}), flush=True)
+    print(json.dumps({"device": smi, "lde": report}), flush=True)
     ok = all(v["bit_equal"] for t in report.values() for v in t.values())
-    return 0 if ok and len(libs) == len(BUILDS) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -121,6 +121,14 @@ def test_eval_poly_at_kernel_equals_plain(dev, rows, n):
     assert torch.equal(ntt.eval_poly_at(c, pt), ntt.eval_poly_at_plain(c, pt))
 
 
+def test_eval_poly_at_counts_only_its_launches(dev):
+    kernels.reset_launches()
+    assert ntt.eval_poly_at(_field(0, (0, 16), dev), 5).shape == (0,)
+    assert kernels.LAUNCHES["eval_poly_at"] == 0
+    ntt.eval_poly_at(_field(1, (1, 16), dev), 5)
+    assert kernels.LAUNCHES["eval_poly_at"] == 1
+
+
 @pytest.mark.parametrize("n,w", [(1, 1), (31, 33), (64, 1), (1000, 278)])
 def test_to_mont_cols_kernel_equals_plain(dev, n, w):
     a = _field(n * w, (n, w), dev)
