@@ -8,23 +8,30 @@ Phases:
      beside every later phase;
   2. build the CUDA kernels K1-K11 and slice 4's four (ext_inv,
      ext_batch_inv, eval_poly_at, to_mont_cols) from ethrex_tpu_torch/csrc
-     and the generated AIR constraint kernels (K6) of the path's six AIRs,
-     one nvcc per source, all started together;
+     and the generated AIR constraint kernels (K6) of the path's six AIRs
+     in both modes (the fused alpha combination and the test-only
+     constraint block), one nvcc per source, all started together;
   3. hold every kernel against its plain PyTorch version on the card, at
      the shapes the main path gives it (bit-equal), and time both with
      CUDA events, beside each kernel's bound: K1 (the coset LDE) and K2
      (the leaf hash and the Merkle tree above it) at every distinct shape
      of the path (state 115 x 2^19, TransferAir 278 x 2^20, outer 90 x
      2^22, blowup 8; the plain versions on the first and the last 8 rows
-     or 2^20 leaves beyond the state shape); K3, K4 at the
-     state proof's shapes; K6 once per AIR at its full LDE (the plain
-     version of the three largest on a 2^20 or 2^24-point range); K7 on
+     or 2^20 leaves beyond the state shape); K3 at every shape of the
+     path (each STARK's deep phase at m = 8, its open phase's split-k at
+     m = 8, the fused step's two; the plain version on the first and the
+     last 2^20 rows of the deep shapes beyond the state's); K4 at the
+     state proof's shape; K6's alpha combination once per AIR at its full
+     LDE (the plain version of the three largest on the first and the
+     last 2^20 or 2^22 points), and its constraint block at 2^16 points;
+     K7 on
      the outer divisor stack; K8, K9 and K11 at the state and the outer
      proof's shapes; K10 on the fused step's FRI layer trees; the ext
      inverses on 2^20 elements, eval_poly_at on 64 x 2^16 and
      to_mont_cols on the TransferAir trace (2^20 x 278);
   4. the main path, with the launch counts zeroed just before and read
-     just after: `prover.gpu_backend.prove_vm_stages(..., "groth16")` on
+     just after (K6's combine kernels once per constraint group of each
+     STARK, its block form never): `prover.gpu_backend.prove_vm_stages(..., "groth16")` on
      a VM-mode batch shaped like the reference's BASELINE-3 (1,000
      transactions over 4 blocks, 500 ETH transfers and 500 token calls,
      plus one generic call of 1,996 steps): the state proof (1,002
@@ -43,7 +50,9 @@ Phases:
      accepts the wrap and rejects a wrong digest; then every STARK of the
      main path is proved again from its trace under torch.profiler: per
      phase the wall, the device time by kernel and the device's idle
-     share, and per kernel its device time over the path's STARKs;
+     share, and per kernel its device time over the path's STARKs; K3
+     and K6 by phase, and each STARK's peak device memory (the running
+     peak at each phase's end shows the phase that sets it);
   7. the earlier slice's path, its counts zeroed just before and read
      just after: a state proof (cut to 126 keys and 127 writes: n = 2^16
      x 115) and a 512-limb binding proof (64 chunks), then
@@ -85,6 +94,12 @@ IMAD_SLOTS_PER_S = 132 * 64 * 1.98e9
 # ethrex_tpu_torch/tools/int_mul_rate.py (H100 SXM: 63.4 IMAD, 31.7
 # IMAD.HI.U32 and 24.2 IMAD.WIDE.U32 per SM per clock).
 SLOTS_PER_MONT = 5
+# IMAD slots per raw product summed lazily (bb::mad, with a bb::fold every
+# fourth term), as K3 and K6's alpha combination add them: its SASS holds
+# 1.125 IMAD.WIDE.U32 and 0.0625 IMAD a product
+# (ethrex_tpu_torch/tools/int_mul_rate.py, `sass_multiplies_per_raw`),
+# priced as SLOTS_PER_MONT prices them (two slots a wide form)
+SLOTS_PER_RAW = 2 * 1.125 + 0.0625
 # IMAD slots per BN254 Montgomery product (csrc/bn254_msm.cu `mul`): 8 x 8
 # wide a_i*b_j and 8 x 8 wide m*p_j (IMAD.WIDE.U32, 2 slots each) plus 8
 # low products m = t0 * NP (IMAD, 1 slot); an Fp2 product is 3 of them
@@ -97,10 +112,13 @@ BN254_ADD_MULS = 16
 # (PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3 at 700 W):
 # not measured by this run, so logged on a line of its own.
 # K1 the state LDE, K2 the state leaves and one tree level (2^22 -> 2^21),
-# K6 TransferAir, K8, K9, K11 the outer shape, K10 the fused step's layers
+# K8, K9, K11 the outer shape, K10 the fused step's layers; K3 the state
+# deep phase's two m = 4 calls, and the fused K6 TransferAir's block
+# (38.613 ms) plus K3's read of it (31.566 ms), both by the kernels
+# before their current design
 EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
-              "poseidon2_compress_level": 1.065, "mod_matmul": 3.986,
-              "fri_fold": 0.073, "air_constraints": 64.031,
+              "poseidon2_compress_level": 1.065, "mod_matmul": 4.062,
+              "fri_fold": 0.073, "air_combine": 70.179,
               "batch_inv": 2.920, "bn254_msm_g1": 12.246,
               "bn254_msm_g2": 41.750, "deep_compose": 6.848,
               "quotient_combine": 1.567, "merkle_batched_level": 2.909,
@@ -108,7 +126,7 @@ EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
 # kernels the groth16 paths need not launch: the reference's test-only
 # helpers (no path of the system runs them) and the fused step's own
 NOT_ON_GROTH16_PATHS = ("ext_inv", "ext_batch_inv", "eval_poly_at",
-                        "merkle_batched_level")
+                        "merkle_batched_level", "air_constraints")
 
 
 def log(msg: str) -> None:
@@ -116,9 +134,10 @@ def log(msg: str) -> None:
 
 
 def bound_ms(nbytes: float, products: float,
-             slots_per_product: int = SLOTS_PER_MONT) -> tuple[float, str]:
+             slots_per_product: float = SLOTS_PER_MONT) -> tuple[float, str]:
     """Least time for `nbytes` of traffic and `products` Montgomery
-    products: the larger of the two."""
+    products (or other work at `slots_per_product` IMAD slots each): the
+    larger of the two."""
     t_b = nbytes / HBM_BYTES_PER_S
     t_o = products * slots_per_product / IMAD_SLOTS_PER_S
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
@@ -334,13 +353,99 @@ def check_merkle_shapes(dev, rng) -> dict:
     return out
 
 
+# every STARK of the path whose K3 shapes are large: (tag, trace width,
+# log n); blowup 8
+K3_SHAPES = (("state", 115, 19), ("transfer", 278, 20), ("token", 117, 18),
+             ("bytecode", 354, 19), ("outer", 90, 22))
+
+
+def k3_bound(n: int, k: int, m: int) -> tuple[float, str]:
+    """(n, k) @ (k, m): a and b read once, the result written once; n k m
+    raw products summed lazily."""
+    return bound_ms(4 * (n * k + k * m + n * m), n * k * m, SLOTS_PER_RAW)
+
+
+def check_k3_shapes(dev, rng) -> dict:
+    """K3 at every shape of the path, bit-equal to its plain version and
+    timed: the deep phase's LDE rows (N, w), read in place from the (w,
+    N) columns, at both openings' gamma powers (m = 8; the plain version
+    on the first and the last PLAIN_LEAVES rows beyond the state shape);
+    the open phase's trace coefficients (w, n) at both points' power
+    tables (m = 8, split-k); the fused step's comb (N, 64) @ (64, 4) and
+    its trace at zeta (64, n) @ (n, 4) at log_n 15 and 20.  The row keeps
+    the state deep shape; the canonical mode is checked at small shapes."""
+    from ethrex_tpu_torch.ops import babybear as bb
+
+    shapes = []
+
+    def held(tag, phase, a, b, rows_held):
+        got = bb.mod_matmul(a, b)
+        for sl in rows_held:
+            if not torch.equal(got[sl], bb.mod_matmul_plain(a[sl], b)):
+                raise AssertionError(
+                    f"mod_matmul {tag} {phase} {tuple(a.shape)} @ "
+                    f"{tuple(b.shape)}, rows {sl.start}-{sl.stop - 1}: "
+                    f"kernel differs from its plain version")
+        del got
+        n, k = a.shape
+        m = b.shape[1]
+        ms = cuda_ms(lambda: bb.mod_matmul(a, b), 5)
+        sl = rows_held[0]
+        pms = cuda_ms(lambda: bb.mod_matmul_plain(a[sl], b), 1)
+        b_ms, b_by = k3_bound(n, k, m)
+        shapes.append(dict(
+            tag=tag, phase=phase, shape=f"({n}, {k}) @ ({k}, {m})", ms=ms,
+            plain_ms=pms, plain_rows=[[h.start, h.stop] for h in rows_held],
+            bound_ms=b_ms, bound_by=b_by,
+            kernel="k_rows" if n > bb._SPLITK_MAX_ROWS
+            or k <= bb._SPLITK_CHUNK else "k_splitk"))
+        log(f"[kernels] mod_matmul {tag} {phase}: {shapes[-1]}")
+
+    for tag, w, log_n in K3_SHAPES:
+        n, N = 1 << log_n, 1 << (log_n + 3)
+        lde = field_dev(rng, (w, N), dev)
+        M = N if tag == "state" else PLAIN_LEAVES
+        held(tag, "deep", lde.T, field_dev(rng, (w, 8), dev),
+             [slice(0, M)] if M == N else [slice(0, M), slice(N - M, N)])
+        del lde
+        torch.cuda.empty_cache()
+        coeffs = field_dev(rng, (w, n), dev)
+        held(tag, "open", coeffs, field_dev(rng, (n, 8), dev),
+             [slice(0, w)])
+        del coeffs
+        torch.cuda.empty_cache()
+    for log_n in (15, 20):
+        n, N = 1 << log_n, 1 << (log_n + 2)
+        lde = field_dev(rng, (64, N), dev)
+        held(f"fused{log_n}", "comb", lde.T, field_dev(rng, (64, 4), dev),
+             [slice(0, N)])
+        del lde
+        held(f"fused{log_n}", "trace at zeta", field_dev(rng, (64, n), dev),
+             field_dev(rng, (n, 4), dev), [slice(0, 64)])
+        torch.cuda.empty_cache()
+    for a_shape, k, m in (((4096, 128), 128, 8), ((64, 8192), 8192, 8),
+                          ((33, 115), 115, 4), ((7, 70000), 70000, 3)):
+        a = field(rng, a_shape, dev)
+        b = field(rng, (k, m), dev)
+        for mont in (True, False):
+            if not torch.equal(bb.mod_matmul(a, b, mont),
+                               bb.mod_matmul_plain(a, b, mont)):
+                raise AssertionError(f"mod_matmul {a_shape} @ ({k}, {m}) "
+                                     f"montgomery={mont}: kernel differs")
+        del a, b
+    st = shapes[0]
+    return dict(max_abs_err=0, ms=st["ms"], plain_ms=st["plain_ms"],
+                bound_ms=st["bound_ms"], bound_by=st["bound_by"],
+                shape=f"deep, state: {st['shape']}", at_shapes=shapes)
+
+
 def check_kernels(dev, rng) -> dict:
     from ethrex_tpu_torch.ops import babybear as bb
     from ethrex_tpu_torch.ops import fri
     from ethrex_tpu_torch.ops import ntt
     from ethrex_tpu_torch.ops import poseidon2 as p2
 
-    n, w, lb, K = 1 << 19, 115, 3, 159
+    n, w, lb = 1 << 19, 115, 3
     N = n << lb
     rows = {"ntt": check_ntt_shapes(dev, rng)}
     for shape, kw in (((4, N), dict(inverse=True)),
@@ -361,30 +466,7 @@ def check_kernels(dev, rng) -> dict:
         raise AssertionError("hash_leaves on paired FRI leaves differs")
     del cw
 
-    # K3: the alpha combination (2^22, 159) @ (159, 4), read in place from
-    # the (159, 2^22) constraint stack; also the open phase's (115, 2^19)
-    # @ (2^19, 4) (split-k) and the canonical mode, checked only
-    cons = field(rng, (K, N), dev)
-    apow = field(rng, (K, 4), dev)
-    err, ms, pms = compare(
-        "mod_matmul ((2^22, 159) @ (159, 4))",
-        lambda: bb.mod_matmul(cons.T, apow),
-        lambda: bb.mod_matmul_plain(cons.T, apow), plain_reps=1)
-    b_ms, b_by = bound_ms(4 * (K * N + K * 4 + N * 4), N * K * 4)
-    rows["mod_matmul"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                              bound_ms=b_ms, bound_by=b_by,
-                              shape="alpha combination (2^22, 159) @ (159, 4)")
-    del cons
-    for a_shape, k in (((w, n), n), ((4096, 128), 128), ((64, 8192), 8192)):
-        a = field(rng, a_shape, dev)
-        b = field(rng, (k, 4), dev)
-        for mont in (True, False):
-            if not torch.equal(bb.mod_matmul(a, b, mont),
-                               bb.mod_matmul_plain(a, b, mont)):
-                raise AssertionError(f"mod_matmul {a_shape} montgomery="
-                                     f"{mont}: kernel differs")
-        del a, b
-    log(f"[kernels] mod_matmul ok: {rows['mod_matmul']}")
+    rows["mod_matmul"] = check_k3_shapes(dev, rng)
 
     # K4: the first FRI fold (2^22, 4) -> (2^21, 4)
     cw = field(rng, (N, 4), dev)
@@ -411,15 +493,16 @@ BINDING_CHUNKS = 10     # the VM-mode binding message: 74 limbs -> 80
 
 def path_airs():
     """The AIRs of the main path at their full size, with the number of
-    points the plain K6 version is held on: the state proof's
+    points the plain K6 version is held on at the head and at the tail of
+    the full domain (None: the whole domain): the state proof's
     StateUpdateAir (depth 10, 16-period segments), the VM batch's
     TransferAir (2,048 segments), TokenAir (512) and BytecodeAir (2,048
     steps), the VM-mode binding proof's Poseidon2SpongeAir (10 chunks) and
     the outer FriVerifyAir over all five (the deepest FRI layer-0 path,
     TransferAir's, has depth 22, so 32-period segments).  The plain
     interpreter of TransferAir, BytecodeAir and the outer AIR does not fit
-    beside the kernel's output at the full LDE, so those are held on the
-    first 2^20 (2^24) points, a domain of its own."""
+    beside the full LDE, so those are held on 2^20 (2^22) points at each
+    end."""
     from ethrex_tpu_torch.models import bytecode_air as bca
     from ethrex_tpu_torch.models import fri_verifier_air as fva
     from ethrex_tpu_torch.models import poseidon2_air as pair
@@ -434,21 +517,60 @@ def path_airs():
             "BytecodeAir": (bca.BytecodeAir(), 1 << 19, 1 << 20),
             "Poseidon2SpongeAir": (pair.Poseidon2SpongeAir(BINDING_CHUNKS),
                                    1 << 8, None),
-            "FriVerifyAir": (fva.FriVerifyAir(22), 1 << 22, 1 << 24)}
+            "FriVerifyAir": (fva.FriVerifyAir(22), 1 << 22, 1 << 22)}
+
+
+def combine_plain_window(air, lde, per, B, apow, lo: int, hi: int):
+    """`air_codegen.combine_plain` on the points [lo, hi) of the full
+    domain: the local rows there and the next rows at (i + B) mod N."""
+    from ethrex_tpu_torch.ops import babybear as bb
+    from ethrex_tpu_torch.stark.air import DeviceOps
+
+    N = lde.shape[1]
+    nxt = (torch.arange(lo, hi, device=lde.device) + B) % N
+    cons = air.constraints(list(lde[:, lo:hi].unbind(0)),
+                           list(lde[:, nxt].unbind(0)),
+                           list(per[:, lo:hi].unbind(0)),
+                           DeviceOps(lde.device))
+    block = torch.stack([c.expand(hi - lo) for c in cons])
+    del cons
+    return bb.mod_matmul_plain(block.T, apow[:air.num_constraints])
+
+
+def group_muls(graph, max_nodes=None) -> int:
+    """Montgomery products a point costs across the AIR's kernels (a node
+    needed by two groups is computed in both): the graph's own products
+    plus what the split into kernels recomputes."""
+    from ethrex_tpu_torch.stark import air_codegen
+
+    parts = air_codegen.groups(graph, max_nodes or
+                               air_codegen.MAX_NODES_PER_KERNEL)
+    return sum(1 for g in parts for i in graph.reachable(g)
+               if graph.nodes[i][0] == air_codegen.MUL)
+
+
+# points the test-only evaluate form is held and timed on
+EVALUATE_POINTS = 1 << 16
 
 
 def check_air_kernels(dev, rng) -> dict:
-    """K6 for each AIR of the path at its LDE size (blowup 8): timed at
-    the full size, held bit-equal to the DeviceOps evaluation with its
-    rolled LDE on the full domain or on the first `plain_points` points
-    taken as a domain of their own."""
+    """K6 for each AIR of the path at its LDE size (blowup 8).  Combine
+    mode (the path's): timed at the full size and held bit-equal to the
+    plain version (the DeviceOps evaluation, then K3's plain version) on
+    the whole domain or on its first and last `plain_points` points.
+    Evaluate mode (test-only: the constraint block): held bit-equal to
+    its plain version and timed on a domain of EVALUATE_POINTS points."""
     from ethrex_tpu_torch.stark import air_codegen
 
-    per_air = []
+    per_air, per_air_eval = [], []
     for name, (air, n, plain_points) in path_airs().items():
         N = n << 3
         graph = air_codegen.record(air)
-        M = plain_points or N
+        K = graph.num_constraints
+        counts = graph.counts()
+        nk = len(air_codegen.groups(graph))
+        # evaluate mode, reduced
+        M = min(N, EVALUATE_POINTS)
         lde = field_dev(rng, (air.width, M), dev)
         per = field_dev(rng, (air.num_periodic, M), dev)
         err, ms, pms = compare(
@@ -456,31 +578,59 @@ def check_air_kernels(dev, rng) -> dict:
             lambda: air_codegen.evaluate(air, lde, per, 8),
             lambda: air_codegen.evaluate_plain(air, lde, per, 8),
             kernel_reps=3, plain_reps=1)
-        if M != N:                   # time the kernel at the full size
-            del lde, per
-            torch.cuda.empty_cache()
-            lde = field_dev(rng, (air.width, N), dev)
-            per = field_dev(rng, (air.num_periodic, N), dev)
-            ms = cuda_ms(lambda: air_codegen.evaluate(air, lde, per, 8), 3)
-        K = graph.num_constraints
-        counts = graph.counts()
-        b_ms, b_by = bound_ms(4 * (air.width + air.num_periodic + K) * N,
-                              counts["mul"] * N)
-        per_air.append(dict(air=name, shape=f"({air.width}, {N}) -> ({K}, "
-                            f"{N})", held_on_points=M,
-                            kernels=len(air_codegen.groups(graph)),
-                            nodes=sum(counts.values()), muls=counts["mul"],
-                            max_abs_err=err, ms=ms, plain_ms=pms,
-                            plain_points=M, bound_ms=b_ms, bound_by=b_by))
-        log(f"[kernels] air_constraints {name} ok: {per_air[-1]}")
+        b_ms, b_by = bound_ms(4 * (air.width + air.num_periodic + K) * M,
+                              counts["mul"] * M)
+        per_air_eval.append(dict(
+            air=name, shape=f"({air.width}, {M}) -> ({K}, {M})", kernels=nk,
+            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by))
+        log(f"[kernels] air_constraints {name} ok: {per_air_eval[-1]}")
         del lde, per
+        # combine mode at the full size
+        lde = field_dev(rng, (air.width, N), dev)
+        per = field_dev(rng, (air.num_periodic, N), dev)
+        apow = field_dev(rng, (K, 4), dev)
+        got = air_codegen.combine(air, lde, per, 8, apow)
+        M = plain_points or N
+        windows = [(0, M)] if M == N else [(0, M), (N - M, N)]
+        for lo, hi in windows:
+            if not torch.equal(got[lo:hi], combine_plain_window(
+                    air, lde, per, 8, apow, lo, hi)):
+                raise AssertionError(f"air_combine {name} (N = {N}, points "
+                                     f"{lo}-{hi - 1}): kernel differs from "
+                                     f"its plain version")
+        del got
         torch.cuda.empty_cache()
-    big = max(per_air, key=lambda r: r["ms"])
-    return dict(max_abs_err=max(r["max_abs_err"] for r in per_air),
-                ms=big["ms"], plain_ms=big["plain_ms"],
-                bound_ms=big["bound_ms"], bound_by=big["bound_by"],
-                shape=f"{big['air']} {big['shape']} (plain on "
-                      f"{big['plain_points']} points)", per_air=per_air)
+        pms = cuda_ms(lambda: combine_plain_window(air, lde, per, 8, apow,
+                                                   0, M), 1)
+        ms = cuda_ms(lambda: air_codegen.combine(air, lde, per, 8, apow), 3)
+        # reads each trace and periodic column once, writes (N, 4); the
+        # graph's unique products and K x 4 raw products (what the split
+        # into kernels recomputes is the kernel's cost, not the function's:
+        # reported beside, not bounded)
+        b_ms, b_by = bound_ms(4 * ((air.width + air.num_periodic + 4) * N
+                                   + 4 * K),
+                              N * (counts["mul"] * SLOTS_PER_MONT
+                                   + 4 * K * SLOTS_PER_RAW), 1)
+        per_air.append(dict(air=name, shape=f"({air.width}, {N}) -> ({N}, "
+                            f"4), {K} constraints", kernels=nk,
+                            nodes=sum(counts.values()), muls=counts["mul"],
+                            recomputed_muls=group_muls(graph) - counts["mul"],
+                            max_abs_err=0, ms=ms, plain_ms=pms,
+                            plain_points=[list(w) for w in windows],
+                            bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernels] air_combine {name} ok: {per_air[-1]}")
+        del lde, per, apow
+        torch.cuda.empty_cache()
+    out = {}
+    for key, rows in (("air_combine", per_air),
+                      ("air_constraints", per_air_eval)):
+        big = next(r for r in rows if r["air"] == "TransferAir")
+        out[key] = dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                        ms=big["ms"], plain_ms=big["plain_ms"],
+                        bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+                        shape=f"TransferAir {big['shape']}", per_air=rows)
+    return out
 
 
 def check_batch_inv(dev, rng) -> dict:
@@ -690,6 +840,16 @@ def _short_kernel_name(name: str) -> str:
     return f"torch {short}" if torch_kernel else short
 
 
+def _kernel_key(fn: str):
+    """The KERNELS name of a device function of the profile, or None (a
+    copy, a fill, PyTorch's own)."""
+    if fn.startswith("air_k"):
+        return "air_constraints"
+    if fn.startswith("air_c"):
+        return "air_combine"
+    return DEVICE_FUNCTIONS.get(fn)
+
+
 def _time_wrappers(fn):
     """Fallback when the profiler reports no device events: CUDA events
     around every `kernels.call` launch (the generated K6 kernels launch
@@ -716,14 +876,40 @@ def _time_wrappers(fn):
     return out, [(e, t, a.elapsed_time(b)) for e, t, a, b in recs]
 
 
+def _device_events(events, t_anchor: float):
+    """The profile's device events (kernels, copies, fills) as (host_us,
+    dur_us, name, linked).  host_us, on the time.perf_counter() clock, is
+    when the host enqueued the event: the start of the runtime call
+    (cudaLaunchKernel, cudaMemcpyAsync, ...) with the event's correlation
+    id.  The prover synchronizes at every phase's end, so the phase whose
+    span holds that call ran the event; the device's own timestamps can
+    sit milliseconds off the host clock, enough to move a phase's first
+    kernels into the phase before.  An event with no such call (linked
+    False) falls back on its device start."""
+    from torch.autograd import DeviceType
+
+    anchor = next(e for e in events if e.name == "smoke:anchor")
+    off_us = anchor.time_range.start - t_anchor * 1e6
+    launch = {e.id: e.time_range.start for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    out = []
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        at = launch.get(e.id) if e.id > 0 else None
+        out.append(((e.time_range.start if at is None else at) - off_us,
+                    e.time_range.elapsed_us(), _short_kernel_name(e.name),
+                    at is not None))
+    return out
+
+
 def profile_path(dev, result) -> dict:
     """Where each phase's wall goes: every STARK of the main path proved
     again from its trace under torch.profiler (CPU and CUDA activity).
     Per proof and phase: the wall, the device time (kernels, copies and
-    fills starting inside the phase's span), the idle share and the
+    fills enqueued inside the phase's span), the idle share and the
     kernels by device time; per kernel: its device time summed over the
     proofs."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from ethrex_tpu_torch.stark import prover
@@ -732,8 +918,10 @@ def profile_path(dev, result) -> dict:
     per_kernel: dict = {}
     report: dict = {}
     source = "torch.profiler"
+    unlinked_ms = 0.0
     for name, (air, trace, pub) in result["traces"].items():
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("smoke:anchor"):
@@ -741,48 +929,70 @@ def profile_path(dev, result) -> dict:
             _, st = prover.prove_with_stats(air, trace, pub, params,
                                             device=dev)
             torch.cuda.synchronize()
-        events = prof.events()
-        anchor = next(e for e in events if e.name == "smoke:anchor")
-        off_us = anchor.time_range.start - t_anchor * 1e6
-        dev_ev = [(e.time_range.start, e.time_range.elapsed_us(),
-                   _short_kernel_name(e.name)) for e in events
-                  if e.device_type == DeviceType.CUDA]
+        ev = _device_events(prof.events(), t_anchor)
+        dev_ev = [(t, dur, nm) for t, dur, nm, _ in ev]
+        unlinked_ms += sum(dur for _, dur, _, linked in ev
+                           if not linked) / 1e3
         if not dev_ev:
             source = "CUDA events around kernels.call (profiler: none)"
             (_, st), recs = _time_wrappers(lambda: prover.prove_with_stats(
                 air, trace, pub, params, device=dev))
-            off_us = 0.0
             dev_ev = [(t * 1e6, ms * 1e3, e) for e, t, ms in recs]
         phases = {}
         for ph, t0, t1 in st["phase_spans"]:
-            a, b = t0 * 1e6 + off_us, t1 * 1e6 + off_us
+            a, b = t0 * 1e6, t1 * 1e6
             by: dict = {}
             for start, dur, nm in dev_ev:
                 if a <= start < b:
                     by[nm] = by.get(nm, 0.0) + dur / 1e3
             busy = sum(by.values())
             wall = (t1 - t0) * 1e3
+            by_kernel: dict = {}
+            for k, v in by.items():
+                key = _kernel_key(k)
+                if key:
+                    by_kernel[key] = round(by_kernel.get(key, 0.0) + v, 3)
             phases[ph] = dict(wall_ms=wall, device_ms=busy,
                               idle_share=max(0.0, 1 - busy / wall)
                               if wall else 0.0,
                               top=sorted(((k, round(v, 3)) for k, v in
                                           by.items()), key=lambda kv: -kv[1])
-                              [:6])
+                              [:6], by_kernel=by_kernel,
+                              mod_matmul_fns={k: round(v, 3) for k, v in
+                                              by.items() if _kernel_key(k)
+                                              == "mod_matmul"},
+                              peak_gib=st.get("peak_bytes_by_phase", {})
+                              .get(ph, 0) / 2**30)
             for k, v in by.items():
                 per_kernel[k] = per_kernel.get(k, 0.0) + v
         busy = sum(p["device_ms"] for p in phases.values())
+        peak = torch.cuda.max_memory_allocated(dev)
         report[name] = dict(total_s=st["total_s"], device_ms=busy,
                             idle_share=1 - busy / (st["total_s"] * 1e3),
-                            phases=phases)
+                            peak_gib=peak / 2**30, phases=phases)
         log(f"[profile] {name} ({source}): proof {st['total_s']:.3f} s, "
             f"device {busy:.1f} ms, idle share "
-            f"{report[name]['idle_share']:.3f}; phases "
-            f"{json.dumps(phases)}")
-        del prof, events, dev_ev
+            f"{report[name]['idle_share']:.3f}, peak device memory "
+            f"{peak / 2**30:.2f} GiB; phases {json.dumps(phases)}")
+        del prof, ev, dev_ev
     per_kernel = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1]))
     log(f"[profile] device ms per kernel over the {len(report)} STARKs: "
         f"{json.dumps({k: round(v, 3) for k, v in per_kernel.items()})}")
-    return dict(source=source, proofs=report, per_kernel=per_kernel)
+    # K3 and K6 by phase over the STARKs, and each STARK's peak
+    by_phase: dict = {}
+    for rep in report.values():
+        for ph, row in rep["phases"].items():
+            for key in ("mod_matmul", "air_constraints", "air_combine"):
+                if key in row["by_kernel"]:
+                    d = by_phase.setdefault(key, {})
+                    d[ph] = round(d.get(ph, 0.0) + row["by_kernel"][key], 3)
+    peaks = {name: round(rep["peak_gib"], 3) for name, rep in report.items()}
+    log(f"[profile] K3 and K6 device ms by phase over the STARKs: "
+        f"{json.dumps(by_phase)}; peak GiB per STARK {json.dumps(peaks)}; "
+        f"device ms placed by the device clock (no launch call found): "
+        f"{unlinked_ms:.3f}")
+    return dict(source=source, proofs=report, per_kernel=per_kernel,
+                by_phase=by_phase, peak_gib=peaks, unlinked_ms=unlinked_ms)
 
 
 def check_batched_roots(dev, rng, log_n: int, log_blowup: int = 2,
@@ -1077,6 +1287,21 @@ def main_path(dev, rng, keys_future) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    # the quotient of every STARK goes through K6's combine kernels, one
+    # launch per constraint group, and never through the (K, N) block
+    from ethrex_tpu_torch.stark import air_codegen
+
+    groups_per_air = {name: len(air_codegen.groups(air_codegen.record(air)))
+                      for name, (air, _, _) in traces.items()}
+    log(f"[main] air_combine launches per STARK (its constraint groups): "
+        f"{json.dumps(groups_per_air)}")
+    if launches["air_combine"] != sum(groups_per_air.values()) or \
+            launches["air_constraints"]:
+        raise AssertionError(
+            f"air_combine launched {launches['air_combine']} times (the "
+            f"STARKs' groups: {sum(groups_per_air.values())}), "
+            f"air_constraints {launches['air_constraints']} times (0 "
+            f"expected)")
     # the upload of every STARK's trace (state, transfer, token,
     # bytecode, binding, outer) goes through the kernel
     if launches["to_mont_cols"] < len(traces):
@@ -1310,7 +1535,8 @@ def build_all() -> None:
     from ethrex_tpu_torch.stark import air_codegen
 
     t0 = time.perf_counter()
-    texts = [air_codegen.cuda_source(air_codegen.record(air))[0]
+    texts = [air_codegen.cuda_source(air_codegen.record(air), mode=mode)[0]
+             for mode in air_codegen.MODES
              for air, _, _ in path_airs().values()]
     errors = []
 
@@ -1327,9 +1553,11 @@ def build_all() -> None:
     if errors:
         raise errors[0]
     kernels.lib()
+    names = [f"{name} {mode}" for mode in air_codegen.MODES
+             for name in path_airs()]
     gen = {name: round(kernels.GENERATED_BUILD_S.get(
         kernels._generated_key(t), 0.0), 1)
-        for name, t in zip(path_airs(), texts)}
+        for name, t in zip(names, texts)}
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s; nvcc s per generated AIR "
         f"source {json.dumps(gen)}")
@@ -1362,7 +1590,7 @@ def main() -> int:
         build_all()
         rng = np.random.default_rng(SEED)
         rows = check_kernels(dev, rng)
-        rows["air_constraints"] = check_air_kernels(dev, rng)
+        rows.update(check_air_kernels(dev, rng))
         rows["batch_inv"] = check_batch_inv(dev, rng)
         rows.update(check_ext_glue(dev, rng))
         rows["merkle_batched_level"] = check_batched_roots(dev, rng, 20)
@@ -1385,8 +1613,7 @@ def main() -> int:
 
     path_ms: dict = {}
     for fn, ms in prof["per_kernel"].items():
-        key = DEVICE_FUNCTIONS.get(fn, "air_constraints"
-                                   if fn.startswith("air_k") else None)
+        key = _kernel_key(fn)
         if key:
             path_ms[key] = path_ms.get(key, 0.0) + ms
     out = []
@@ -1449,6 +1676,7 @@ REPLACES = {
     "mod_matmul": "ethrex_tpu/ops/babybear.py:191",
     "fri_fold": "ethrex_tpu/ops/fri.py:49",
     "air_constraints": "ethrex_tpu/stark/prover.py:527",
+    "air_combine": "ethrex_tpu/stark/prover.py:527",
     "batch_inv": "ethrex_tpu/ops/babybear.py:147",
     "bn254_msm_g1": "ethrex_tpu/ops/bn254_msm.py:308",
     "bn254_msm_g2": "ethrex_tpu/ops/bn254_msm.py:308",

@@ -58,6 +58,33 @@ __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
   return addmin(t, P, t);
 }
 
+// Montgomery reduction of a 64-bit value: x * R^{-1} mod p, canonical,
+// for any x < p * 2^32 (the same steps as `mul` after its product).
+__device__ __forceinline__ uint32_t redc(uint64_t x) {
+  uint32_t lo = (uint32_t)x;
+  uint32_t hi = (uint32_t)(x >> 32);
+  uint32_t t = hi - __umulhi(lo * PINV, P);
+  return addmin(t, P, t);
+}
+
+// Lazy sums of raw products.  A raw product of two residues is at most
+// (p - 1)^2 = 225 * 2^54, and one 64-bit multiply-add (IMAD.WIDE.U32)
+// adds it to a 64-bit accumulator: acc = mad(a, b, acc).  `fold` maps
+// any 64-bit acc to a value below 2^60 with the same residue, hi * 2^32
+// + lo -> hi * (2^32 mod p) + lo (2^32 mod p = MONT_ONE < 2^28), one more
+// IMAD.WIDE.U32.  Below 2^60, four raw products fit:
+// 2^60 + 4 * 225 * 2^54 = 964 * 2^54 < 2^64.  So a sum folds once every
+// four terms, and a folded sum (< 2^60 < p * 2^32) takes `redc` directly:
+// redc(fold(sum of (aR)(bR))) is the Montgomery form of sum ab.
+__device__ __forceinline__ uint64_t mad(uint32_t a, uint32_t b,
+                                        uint64_t acc) {
+  return (uint64_t)a * b + acc;
+}
+
+__device__ __forceinline__ uint64_t fold(uint64_t x) {
+  return (uint64_t)(uint32_t)(x >> 32) * MONT_ONE + (uint32_t)x;
+}
+
 __device__ __forceinline__ uint32_t mpow(uint32_t a, uint32_t e) {
   uint32_t r = MONT_ONE;
   while (e) {

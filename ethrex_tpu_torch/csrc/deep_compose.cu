@@ -7,8 +7,8 @@
 // Replaces the jax.jit body ethrex_tpu/stark/prover.py:565-585
 // (`phase_deep`) with what it calls: ops/ext.py:134 `inv_x_minus_zeta`,
 // the ext mul/add/sub of ops/ext.py:33-62 and ops/babybear.py:168
-// `sum_mod` over the B quotient chunks.  S1 and S2 are the two K3 products
-// (LDE rows @ gamma powers); c1, c2, the gamma powers g_b and the chunk
+// `sum_mod` over the B quotient chunks.  S1 and S2 are the two halves of
+// one K3 product (LDE rows @ both gamma power columns); c1, c2, the gamma powers g_b and the chunk
 // openings Q_b(zeta) are per-proof constants from the host.  With one
 // opening and no quotient chunks it is the fused prove step's DEEP
 // codeword, ethrex_tpu/parallel/core.py:103-108.
@@ -69,7 +69,7 @@ __global__ void k_deep(const uint32_t* __restrict__ pts,
                        const uint32_t* __restrict__ q_lde,
                        const uint32_t* __restrict__ kc,
                        uint32_t* __restrict__ out, long long N, int nq,
-                       int two) {
+                       int two, int ss) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   uint32_t x = pts[i];
@@ -93,7 +93,7 @@ __global__ void k_deep(const uint32_t* __restrict__ pts,
   } else {
     inv0 = bb::mpow(n0, bb::P - 2u);
   }
-  uint4 m1 = reinterpret_cast<const uint4*>(s1m)[i];
+  uint4 m1 = reinterpret_cast<const uint4*>(s1m)[i * ss];
   uint32_t a[4] = {bb::sub(m1.x, o0.c[0]), bb::sub(m1.y, o0.c[1]),
                    bb::sub(m1.z, o0.c[2]), bb::sub(m1.w, o0.c[3])};
   const uint32_t* gq = kc + 40;
@@ -112,7 +112,7 @@ __global__ void k_deep(const uint32_t* __restrict__ pts,
   for (int k = 0; k < 4; ++k) iz[k] = bb::mul(conj0[k], inv0);
   bb::ext_mul(a, iz, r);
   if (two) {
-    uint4 m2 = reinterpret_cast<const uint4*>(s2m)[i];
+    uint4 m2 = reinterpret_cast<const uint4*>(s2m)[i * ss];
     uint32_t c[4] = {bb::sub(m2.x, o1.c[0]), bb::sub(m2.y, o1.c[1]),
                      bb::sub(m2.z, o1.c[2]), bb::sub(m2.w, o1.c[3])};
     uint32_t izg[4], t[4];
@@ -129,16 +129,17 @@ __global__ void k_deep(const uint32_t* __restrict__ pts,
 
 extern "C" {
 
-// pts (N,), s1m (N, 4), s2m (N, 4) or null when two == 0, q_lde (nq, 4, N)
-// or null when nq == 0, consts as above -> out (N, 4)
+// pts (N,), s1m (N, 4), s2m (N, 4) (rows 4 ss words apart: ss = 2 reads
+// the two halves of one (N, 8) K3 result in place), q_lde (nq, 4, N),
+// consts as above -> out (N, 4)
 int deep_compose(const void* pts, const void* s1m, const void* s2m,
                  const void* q_lde, const void* consts, void* out,
-                 long long N, int nq, int two, cudaStream_t stream) {
+                 long long N, int nq, int two, int ss, cudaStream_t stream) {
   if (N > 0) {
     k_deep<<<(unsigned)((N + 255) / 256), 256, 0, stream>>>(
         (const uint32_t*)pts, (const uint32_t*)s1m, (const uint32_t*)s2m,
         (const uint32_t*)q_lde, (const uint32_t*)consts, (uint32_t*)out, N,
-        nq, two);
+        nq, two, ss);
   }
   return (int)cudaGetLastError();
 }

@@ -30,12 +30,14 @@ __device__ __forceinline__ void power_at(const uint32_t* small,
 
 __global__ void k_table(const uint32_t* __restrict__ small,
                         const uint32_t* __restrict__ big,
-                        uint32_t* __restrict__ out, long long n, int blk) {
+                        uint32_t* __restrict__ out, long long row_stride,
+                        long long n, int blk) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t z[4];
   power_at(small, big, i, blk, z);
-  reinterpret_cast<uint4*>(out)[i] = make_uint4(z[0], z[1], z[2], z[3]);
+  *reinterpret_cast<uint4*>(out + i * row_stride) =
+      make_uint4(z[0], z[1], z[2], z[3]);
 }
 
 __global__ void k_eval_partial(const uint32_t* __restrict__ coeffs,
@@ -87,12 +89,15 @@ __global__ void k_eval_final(const uint32_t* __restrict__ partial, int G,
 
 extern "C" {
 
-// small (blk, 4), big (ceil(n / blk), 4) -> out (n, 4)
+// small (blk, 4), big (ceil(n / blk), 4) -> out (n, 4), row i at word
+// i * row_stride (a multiple of 4, so each row is one 16-byte store)
 int ext_powers_table(const void* small, const void* big, void* out,
-                     long long n, int blk, cudaStream_t stream) {
+                     long long row_stride, long long n, int blk,
+                     cudaStream_t stream) {
   if (n > 0) {
     k_table<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)out, n, blk);
+        (const uint32_t*)small, (const uint32_t*)big, (uint32_t*)out,
+        row_stride, n, blk);
   }
   return (int)cudaGetLastError();
 }

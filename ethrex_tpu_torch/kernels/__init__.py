@@ -7,8 +7,9 @@ imports on a machine without CUDA).  Each source compiles in its own
 `nvcc` process, all started together, and the objects are linked once.
 The library is rebuilt only when a hash of the sources changes.
 
-Generated kernels (the AIR constraint kernels of `stark/air_codegen.py`)
-are built the same way into a library of their own per source text,
+Generated kernels (the AIR constraint kernels of `stark/air_codegen.py`,
+in either of their two modes) are built the same way into a library of
+their own per source text,
 `build/ethrex_tpu_torch/air/lib<hash>.so`, by `load_generated`
 (`build_generated` compiles several at once).
 
@@ -43,6 +44,7 @@ KERNELS = {
     "mod_matmul": "csrc/mod_matmul.cu",
     "fri_fold": "csrc/fri_fold.cu",
     "air_constraints": "stark/air_codegen.py",
+    "air_combine": "stark/air_codegen.py",
     "batch_inv": "csrc/batch_inv.cu",
     "bn254_msm_g1": "csrc/bn254_msm.cu",
     "bn254_msm_g2": "csrc/bn254_msm.cu",
@@ -154,10 +156,10 @@ _SIGNATURES = {
     "fri_fold": [_P, _P, _P, _P, _P, _L, _P],
     "batch_inv": [_P, _P, _L, _I, _P],
     "bn254_msm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "deep_compose": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "deep_compose": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "quotient_combine": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "p2_batched_level": [_P, _P, _P, _I, _L, _P],
-    "ext_powers_table": [_P, _P, _P, _L, _I, _P],
+    "ext_powers_table": [_P, _P, _P, _L, _L, _I, _P],
     "ext_poly_eval": [_P, _L, _L, _L, _P, _P, _I, _L, _I, _I, _P, _P, _P],
     "ext_inv": [_P, _P, _L, _P],
     "ext_batch_inv": [_P, _P, _L, _I, _P],
@@ -237,10 +239,9 @@ def build_generated(texts: list[str], verbose: bool = False) -> list[Path]:
     return paths
 
 
-def load_generated(text: str, entries: list[str]):
+def load_generated(text: str, entries: list[str], argtypes: list):
     """The loaded library of a generated source (built on first use);
-    each name in `entries` is bound as
-    (lde, per, out, N, B, stream) -> int."""
+    each name in `entries` is bound with `argtypes`, returning int."""
     key = _generated_key(text)
     handle = _generated.get(key)
     if handle is not None:
@@ -252,7 +253,7 @@ def load_generated(text: str, entries: list[str]):
             handle = ctypes.CDLL(str(path))
             for name in entries:
                 fn = getattr(handle, name)
-                fn.argtypes = [_P, _P, _P, _L, _L, _P]
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _generated[key] = handle
     return handle

@@ -230,10 +230,13 @@ def sum_mod(x, dim: int = -1):
 # Modular matmul: kernel K3 (csrc/mod_matmul.cu) with its plain version
 # ---------------------------------------------------------------------------
 
-# below this many rows the split-k kernel (a block per row and k-slice)
-# keeps the card busy; above it one thread per row does
+# below this many rows, and with k above one k-slice, the split-k kernel
+# (a block per group of rows and k-slice) keeps the card busy; otherwise
+# one thread per row does.  The open phase's shapes, (115, 2^19) ..
+# (354, 2^19) and (90, 2^22), take 128-1,024 slices.  _SPLITK_CHUNK is
+# SPLIT_CHUNK of csrc/mod_matmul.cu (256 threads x 16 positions).
 _SPLITK_MAX_ROWS = 2048
-_SPLITK_CHUNK = 8192
+_SPLITK_CHUNK = 4096
 
 
 def mod_matmul_plain(a, b, montgomery: bool = True):
@@ -268,7 +271,9 @@ def mod_matmul(a, b, montgomery: bool = True):
 
     With montgomery=True inputs and result are Montgomery form; with
     montgomery=False all values are canonical (the JAX function's two
-    modes).  On a CUDA tensor this launches kernel K3."""
+    modes).  On a CUDA tensor this launches kernel K3.  Callers that have
+    two right-hand sides for one `a` pass them side by side, m = 8: one
+    read of `a` (the results are the same columns)."""
     if a.device.type != "cuda":
         return mod_matmul_plain(a, b, montgomery)
     kernels.require_int32_cuda(a, "mod_matmul a")

@@ -152,32 +152,52 @@ def _short_tables(point, n: int, device):
             blk)
 
 
-def powers_table(point, n: int, device=None):
-    """[1, z, ..., z^{n-1}] as an (n, 4) Montgomery tensor on `device`.
-    Kernel K11 (`ext_powers_table`) on the card; the plain version,
-    `ext_powers_blocked`, on the CPU."""
-    if device is None:
+def powers_table(point, n: int, device=None, out=None):
+    """[1, z, ..., z^{n-1}] as an (n, 4) Montgomery tensor on `device`,
+    or written into `out`, an (n, 4) int32 view whose rows may be strided
+    (a column slice of a wider table).  Kernel K11 (`ext_powers_table`)
+    on the card; the plain version, `ext_powers_blocked`, on the CPU."""
+    if out is not None:
+        device = out.device
+    elif device is None:
         device = point.device if isinstance(point, torch.Tensor) else "cpu"
     device = torch.device(device)
     if device.type != "cuda":
-        return ext_powers_blocked(point, n, device=device)
+        table = ext_powers_blocked(point, n, device=device)
+        if out is None:
+            return table
+        out.copy_(table)
+        return out
+    if out is None:
+        out = torch.empty((n, DEG), dtype=bb.I32, device=device)
+    elif (out.shape != (n, DEG) or out.dtype != bb.I32 or out.stride(1) != 1
+          or out.stride(0) % DEG or out.data_ptr() % 16):
+        raise ValueError("powers_table: out must be an (n, 4) int32 view "
+                         "with 16-byte aligned rows")
     small, big, blk = _short_tables(point, n, device)
-    out = torch.empty((n, DEG), dtype=bb.I32, device=device)
     kernels.call("ext_powers_table", device, kernels.ptr(small),
-                 kernels.ptr(big), kernels.ptr(out), n, blk)
+                 kernels.ptr(big), kernels.ptr(out), out.stride(0), n, blk)
     kernels.count("ext_poly_eval")
     return out
 
 
-def eval_base_poly_at_ext(coeffs, point):
-    """Evaluate base-coefficient polys at an ext point.
+def eval_base_poly_at_ext(coeffs, *points):
+    """Evaluate base-coefficient polys at one or more ext points.
 
-    coeffs: (..., n) base Montgomery; point: (4,) ext Montgomery tensor or
-    canonical tuple.  Returns (..., 4) via the modular matmul (..., n) @
-    (n, 4) (kernels K11 and K3 on the card)."""
+    coeffs: (..., n) base Montgomery; each point: (4,) ext Montgomery
+    tensor or canonical tuple.  The points' power tables (kernel K11)
+    fill the column blocks of one (n, 4 x points) table, so one modular
+    matmul (kernel K3) reads coeffs once for all of them.  Returns (...,
+    4) for one point, else a tuple of (..., 4) views, one a point."""
     n = coeffs.shape[-1]
-    pows = powers_table(point, n, device=coeffs.device)
-    return bb.mod_matmul(coeffs, pows)
+    pows = torch.empty((n, DEG * len(points)), dtype=bb.I32,
+                       device=coeffs.device)
+    for j, point in enumerate(points):
+        powers_table(point, n, out=pows[:, DEG * j:DEG * (j + 1)])
+    res = bb.mod_matmul(coeffs, pows)
+    if len(points) == 1:
+        return res
+    return tuple(res[..., DEG * j:DEG * (j + 1)] for j in range(len(points)))
 
 
 # Frobenius x -> x^p acts coordinate-wise: coordinate j of x^{p^k} is
@@ -430,16 +450,32 @@ def _conj_norm_coeffs(point) -> list[int]:
     return list(s1) + list(s2) + list(s3) + e
 
 
+def _opening_rows(sums):
+    """(S1, S2, row stride in 16-byte units) as K8 reads them: each S's
+    (N, 4) rows in place when they lie 4 or 8 words apart (8: the halves
+    of one (N, 8) K3 result), both at the same stride; else contiguous
+    copies."""
+    def stride(S):
+        st = S.stride(0) if S.stride(1) == 1 else 0
+        return st if st in (DEG, 2 * DEG) and S.data_ptr() % 16 == 0 else 0
+    s1 = sums[0]
+    s2 = sums[1] if len(sums) == 2 else s1
+    st = stride(s1)
+    if not st or stride(s2) != st:
+        s1, s2, st = s1.contiguous(), s2.contiguous(), DEG
+    return s1, s2, st // DEG
+
+
 def deep_compose(pts_m, openings, q_lde=None, q_z=None, gq=None):
     """The DEEP codeword over the LDE domain points pts_m (N,):
 
         sum_o (S_o - sum_i t_o[i] g_o[i]) / (x - z_o)
           + sum_b gq[b] (q_lde[b] - q_z[b]) / (x - z_0)
 
-    openings: one or two (z (canonical host tuple), S (N, 4), t (w, 4),
-    g (w, 4)); q_lde (nb, 4, N), q_z (nb, 4), gq (nb, 4), or None for no
-    quotient chunks (the fused prove step).  Montgomery tensors.  Kernel
-    K8 on a CUDA tensor."""
+    openings: one or two (z (canonical host tuple), S (N, 4) (rows 4 or
+    8 words apart), t (w, 4), g (w, 4)); q_lde (nb, 4, N), q_z (nb, 4),
+    gq (nb, 4), or None for no quotient chunks (the fused prove step).
+    Montgomery tensors.  Kernel K8 on a CUDA tensor."""
     if pts_m.device.type != "cuda":
         return deep_compose_plain(pts_m, openings, q_lde, q_z, gq)
     if len(openings) not in (1, 2):
@@ -465,8 +501,7 @@ def deep_compose(pts_m, openings, q_lde=None, q_z=None, gq=None):
         consts += [int(v) for v in bb.from_mont_host(
             bb.to_numpy(q_z)).reshape(-1)]
     kc = bb.mont_tensor(consts, dev)
-    s1m = openings[0][1].contiguous()
-    s2m = openings[1][1].contiguous() if len(openings) == 2 else s1m
+    s1m, s2m, ss = _opening_rows([o[1] for o in openings])
     q = q_lde.contiguous() if nq else s1m
     for x, name in ((pts_m, "pts_m"), (s1m, "S"), (s2m, "S"), (q, "q_lde")):
         kernels.require_int32_cuda(x, f"deep_compose {name}")
@@ -474,7 +509,7 @@ def deep_compose(pts_m, openings, q_lde=None, q_z=None, gq=None):
     kernels.call("deep_compose", dev, kernels.ptr(pts_m.contiguous()),
                  kernels.ptr(s1m), kernels.ptr(s2m), kernels.ptr(q),
                  kernels.ptr(kc), kernels.ptr(out), N, nq,
-                 1 if len(openings) == 2 else 0)
+                 1 if len(openings) == 2 else 0, ss)
     kernels.count("deep_compose")
     return out
 

@@ -18,37 +18,59 @@ periodic columns) and returns an SSA graph of add/sub/mul/const nodes:
     simplify; every rule gives the canonical residue that DeviceOps
     computes, so the values are bit-equal.
 
-`cuda_source(graph)` emits CUDA C++ for that graph: a thread per LDE point
-i reads lde[j, i] and lde[j, (i + B) mod N] in place (no rolled copy of the
-LDE, 6 GB at the outer proof's size), and the periodic columns at i, and
-writes its column of the (K, N) constraint block that kernel K3 combines.
-Inputs are read right before their first use.  Graphs larger than
-`MAX_NODES_PER_KERNEL` are split into several kernels by groups of
-consecutive constraints (each recomputes the shared nodes it needs): on
-the H100 one straight-line kernel per AIR ran 3-4x slower than kernels of
-about 1,200 nodes, and 300-node kernels recompute too much
-(`tools/air_kernel_split.py`).  The source goes to
-`build/ethrex_tpu_torch/air/<hash>.cu` and is compiled and loaded by
-`kernels.load_generated`; only the repo's own AIR classes are traced.
+`cuda_source(graph, mode=...)` emits CUDA C++ for that graph: a thread
+per LDE point i reads lde[j, i] and lde[j, (i + B) mod N] in place (no
+rolled copy of the LDE, 6 GB at the outer proof's size), and the periodic
+columns at i.  Inputs are read right before their first use.  Two modes:
 
-Bound on this card: the kernel reads each trace and periodic column once
-and writes K words per point; its arithmetic is about 5-6 Montgomery
-products per constraint, so the path's AIRs are bound by bytes.  It runs
-about 5x over that bound on the H100 (PERF.md).
+  * "combine" (the prover's, `combine`): as each constraint value v_k is
+    made, the thread adds v_k * apow[k] into four lazy 64-bit sums (raw
+    products, `bb::mad`, folded after every fourth term), reduces each
+    once and writes the point's (N, 4) row of the alpha combination: the
+    reference's (K, N) constraint block and its matmul with the alpha
+    powers (prover.py:527-535) in one pass that writes 16 bytes a point.
+    The group's alpha powers travel as a kernel parameter (the constant
+    bank: every thread reads the same words), hence at most
+    MAX_CONSTRAINTS_PER_KERNEL constraints a kernel.
+  * "evaluate" (`evaluate`, test-only): writes the (K, N) block; it shows
+    which constraint is wrong when the combination disagrees.
+
+Graphs larger than `MAX_NODES_PER_KERNEL` are split into several kernels
+by groups of consecutive constraints (each recomputes the shared nodes it
+needs): on the H100 one straight-line kernel per AIR ran 3-4x slower than
+kernels of about 1,200 nodes, and 300-node kernels recompute too much
+(`tools/air_kernel_split.py`).  In combine mode group 0 writes the result
+and each later group adds its sum mod p, in order on one stream (no
+atomics).  The source goes to `build/ethrex_tpu_torch/air/<hash>.cu` and
+is compiled and loaded by `kernels.load_generated`; only the repo's own
+AIR classes are traced.
+
+Bound on this card: the combine kernel reads each trace and periodic
+column once and writes 4 words per point; its arithmetic is the graph's
+Montgomery products (each group's own) and 4 K raw products a point,
+which bound it.  It runs 3.5-6x over that bound on the H100, no faster
+than the block form alone did, so its time is not its bytes (PERF.md).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import kernels
 from ..ops import babybear as bb
 from .air import Air, DeviceOps
 
-# the largest graph one generated kernel holds before it is split
+# the largest graph one generated kernel holds before it is split (swept
+# again in combine mode: fastest for StateUpdateAir and FriVerifyAir)
 MAX_NODES_PER_KERNEL = 1200
+# the most constraints one kernel holds: a combine kernel takes its
+# constraints' alpha powers (16 bytes each) as a kernel parameter, and
+# CUDA's classic parameter block is 4 KB
+MAX_CONSTRAINTS_PER_KERNEL = 240
 _THREADS = 128
 
 # node kinds
@@ -225,12 +247,14 @@ def interpret(graph: Graph, lde_cols, periodic, B: int) -> torch.Tensor:
 def groups(graph: Graph, max_nodes: int = MAX_NODES_PER_KERNEL) -> list:
     """Split the constraints into runs of consecutive constraints whose
     joint graph holds at most `max_nodes` nodes (a constraint whose own
-    graph is larger stands alone)."""
+    graph is larger stands alone) and at most
+    MAX_CONSTRAINTS_PER_KERNEL constraints."""
     out = []
     cur: list = []
     for k in range(graph.num_constraints):
         trial = cur + [k]
-        if cur and len(graph.reachable(trial)) > max_nodes:
+        if cur and (len(trial) > MAX_CONSTRAINTS_PER_KERNEL
+                    or len(graph.reachable(trial)) > max_nodes):
             out.append(cur)
             cur = [k]
         else:
@@ -240,25 +264,60 @@ def groups(graph: Graph, max_nodes: int = MAX_NODES_PER_KERNEL) -> list:
     return out
 
 
-def _kernel_body(graph: Graph, cids: list, gi: int) -> list:
-    lines = [
-        f"__global__ void __launch_bounds__({_THREADS}) air_k{gi}(",
-        "    const uint32_t* __restrict__ lde,",
-        "    const uint32_t* __restrict__ per,",
-        "    uint32_t* __restrict__ out, long long N, long long B) {",
+_ACC = ("c0", "c1", "c2", "c3")
+
+
+def _kernel_body(graph: Graph, cids: list, gi: int,
+                 combine: bool = False) -> list:
+    """One group's kernel.  Evaluate mode writes each constraint's column
+    of the (K, N) block; combine mode adds v_k * apow[k] into four lazy
+    64-bit sums as each v_k is made (bb::mad; bb::fold after every fourth
+    term keeps them below 2^64), reduces each once (bb::redc) and writes,
+    or for a later group adds mod p to, the point's (N, 4) row."""
+    if combine:
+        lines = [
+            f"struct Alpha{gi} {{ uint32_t w[{4 * len(cids)}]; }};",
+            f"__global__ void __launch_bounds__({_THREADS}) air_c{gi}(",
+            "    const uint32_t* __restrict__ lde,",
+            "    const uint32_t* __restrict__ per,",
+            "    uint32_t* __restrict__ out, long long N, long long B,",
+            f"    const Alpha{gi} ap) {{",
+        ]
+    else:
+        lines = [
+            f"__global__ void __launch_bounds__({_THREADS}) air_k{gi}(",
+            "    const uint32_t* __restrict__ lde,",
+            "    const uint32_t* __restrict__ per,",
+            "    uint32_t* __restrict__ out, long long N, long long B) {",
+        ]
+    lines += [
         "  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;",
         "  if (i >= N) return;",
         "  long long inx = (i + B) & (N - 1);",
     ]
+    if combine:
+        lines.append("  unsigned long long " + ", ".join(
+            f"{c} = 0" for c in _ACC) + ";")
     writes: dict = {}
     for k in cids:
         writes.setdefault(graph.outputs[k], []).append(k)
     loaded: set = set()
+    terms = [0]
 
     def emit(i, expr):
         lines.append(f"  const uint32_t v{i} = {expr};")
         for k in writes.get(i, ()):
-            lines.append(f"  out[{k}LL * N + i] = v{i};")
+            if not combine:
+                lines.append(f"  out[{k}LL * N + i] = v{i};")
+                continue
+            t = 4 * (k - cids[0])
+            lines.append("  " + " ".join(
+                f"{c} = bb::mad(v{i}, ap.w[{t + j}], {c});"
+                for j, c in enumerate(_ACC)))
+            terms[0] += 1
+            if terms[0] % 4 == 0:
+                lines.append("  " + " ".join(f"{c} = bb::fold({c});"
+                                             for c in _ACC))
 
     def load(i):
         # an input or constant is read right before its first use, not
@@ -286,46 +345,79 @@ def _kernel_body(graph: Graph, cids: list, gi: int) -> list:
         load(b)
         op = {ADD: "add", SUB: "sub", MUL: "mul"}[kind]
         emit(i, f"bb::{op}(v{a}, v{b})")
+    if combine:
+        lines.append("  uint4 r = make_uint4(" + ", ".join(
+            f"bb::redc(bb::fold({c}))" for c in _ACC) + ");")
+        lines.append("  uint4* o = reinterpret_cast<uint4*>(out) + i;")
+        if gi:
+            # later groups add to the earlier groups' sum, in stream order
+            lines += ["  const uint4 q = *o;",
+                      "  r = make_uint4(bb::add(q.x, r.x), bb::add(q.y, "
+                      "r.y), bb::add(q.z, r.z), bb::add(q.w, r.w));"]
+        lines.append("  *o = r;")
     lines.append("}")
     return lines
 
 
-def cuda_source(graph: Graph, max_nodes: int = MAX_NODES_PER_KERNEL):
-    """(source text, number of kernels) for the graph.  The text is a
-    function of the graph alone, so the same AIR always gives the same
-    source and the same build."""
+MODES = ("evaluate", "combine")
+
+
+def cuda_source(graph: Graph, max_nodes: int = MAX_NODES_PER_KERNEL,
+                mode: str = "evaluate"):
+    """(source text, number of kernels) for the graph in `mode`:
+    "evaluate" writes the (K, N) constraint block (entries
+    air_launch_<g>), "combine" its alpha combination (N, 4) (entries
+    air_combine_launch_<g>, which take the group's alpha powers as a host
+    pointer).  The text is a function of the graph and the mode alone, so
+    the same AIR always gives the same source and the same build."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    combine = mode == "combine"
     parts = groups(graph, max_nodes)
     lines = [
         f"// Generated by ethrex_tpu_torch/stark/air_codegen.py from "
-        f"{graph.name}:",
+        f"{graph.name} ({mode}):",
         f"// {graph.num_constraints} constraints, width {graph.width}, "
         f"{graph.num_periodic} periodic columns, {len(parts)} kernel(s).",
         "// Kernel K6: replaces the constraint evaluation of the jitted",
-        "// phase_quotient body, ethrex_tpu/stark/prover.py:527.",
+        "// phase_quotient body, ethrex_tpu/stark/prover.py:527"
+        + ("-535, with its alpha combination." if combine else "."),
+        "#include <cstring>",
+        "",
         '#include "babybear.cuh"',
         "",
         "namespace {",
     ]
     for gi, cids in enumerate(parts):
-        lines.extend(_kernel_body(graph, cids, gi))
+        lines.extend(_kernel_body(graph, cids, gi, combine))
     lines += ["}  // namespace", "", 'extern "C" {', ""]
-    for gi in range(len(parts)):
-        lines += [
-            f"int air_launch_{gi}(const void* lde, const void* per, "
-            f"void* out, long long N, long long B, cudaStream_t stream) {{",
-            f"  air_k{gi}<<<(unsigned)((N + {_THREADS - 1}) / {_THREADS}), "
+    grid = (f"<<<(unsigned)((N + {_THREADS - 1}) / {_THREADS}), "
             f"{_THREADS}, 0, stream>>>((const uint32_t*)lde, "
-            f"(const uint32_t*)per, (uint32_t*)out, N, B);",
-            "  return (int)cudaGetLastError();",
-            "}",
-            "",
-        ]
+            f"(const uint32_t*)per, (uint32_t*)out, N, B")
+    for gi in range(len(parts)):
+        if combine:
+            lines += [
+                f"int air_combine_launch_{gi}(const void* lde, const void* "
+                f"per, void* out, const void* alpha, long long N, long long "
+                f"B, cudaStream_t stream) {{",
+                f"  Alpha{gi} ap;",
+                "  memcpy(&ap, alpha, sizeof(ap));",
+                f"  air_c{gi}{grid}, ap);",
+            ]
+        else:
+            lines += [
+                f"int air_launch_{gi}(const void* lde, const void* per, "
+                f"void* out, long long N, long long B, cudaStream_t stream) "
+                f"{{",
+                f"  air_k{gi}{grid});",
+            ]
+        lines += ["  return (int)cudaGetLastError();", "}", ""]
     lines.append('}  // extern "C"')
     return "\n".join(lines) + "\n", len(parts)
 
 
 # ---------------------------------------------------------------------------
-# the wrapper: K6 on a CUDA tensor, DeviceOps on a CPU tensor
+# the wrappers: K6 on a CUDA tensor, DeviceOps on a CPU tensor
 # ---------------------------------------------------------------------------
 
 def evaluate_plain(air: Air, lde_cols, periodic, B: int) -> torch.Tensor:
@@ -340,33 +432,45 @@ def evaluate_plain(air: Air, lde_cols, periodic, B: int) -> torch.Tensor:
     return torch.stack([c.expand(N) for c in cons])
 
 
+def combine_plain(air: Air, lde_cols, periodic, B: int,
+                  apow) -> torch.Tensor:
+    """The plain version of `combine`: the (K, N) block of
+    `evaluate_plain`, then `mod_matmul_plain(block.T, apow[:K])` (the
+    reference's `acc`, ethrex_tpu/stark/prover.py:535)."""
+    K = air.num_constraints
+    cons = evaluate_plain(air, lde_cols, periodic, B)
+    return bb.mod_matmul_plain(cons.T, apow[:K].to(lde_cols.device))
+
+
 _LIBS: dict = {}
+_ARGTYPES = {"evaluate": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+             + [ctypes.c_void_p],
+             "combine": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+             + [ctypes.c_void_p]}
+_ENTRY = {"evaluate": "air_launch_", "combine": "air_combine_launch_"}
 
 
-def build(air: Air, max_nodes: int = MAX_NODES_PER_KERNEL):
-    """Generate, compile and load the AIR's kernels; returns (ctypes
-    library, number of kernels).  The build is cached by the source's
-    hash, and the loaded library per AIR structure, so a launch generates
-    no source (tens of ms of host work for the larger AIRs)."""
-    key = (air.cache_key(), max_nodes)
+def build(air: Air, max_nodes: int = MAX_NODES_PER_KERNEL,
+          mode: str = "evaluate"):
+    """Generate, compile and load the AIR's kernels in `mode`; returns
+    (ctypes library, constraint groups).  The build is cached by the
+    source's hash, and the loaded library per (AIR structure, node cap,
+    mode), so a launch generates no source (tens of ms of host work for
+    the larger AIRs) and the two modes never share a library."""
+    key = (air.cache_key(), max_nodes, mode)
     got = _LIBS.get(key)
     if got is None:
-        text, nk = cuda_source(record(air), max_nodes)
-        got = (kernels.load_generated(text, [f"air_launch_{g}"
-                                             for g in range(nk)]), nk)
+        graph = record(air)
+        text, nk = cuda_source(graph, max_nodes, mode)
+        got = (kernels.load_generated(
+            text, [f"{_ENTRY[mode]}{g}" for g in range(nk)],
+            _ARGTYPES[mode]), groups(graph, max_nodes))
         _LIBS[key] = got
     return got
 
 
-def evaluate(air: Air, lde_cols, periodic, B: int,
-             max_nodes: int = MAX_NODES_PER_KERNEL) -> torch.Tensor:
-    """Constraint block (K, N) of `air` over lde_cols (w, N) and the
-    periodic LDEs (P, N), all int32 Montgomery.  Kernel K6 on a CUDA
-    tensor; the plain version on a CPU tensor.  `max_nodes` caps one
-    generated kernel's graph (see `groups`)."""
-    if lde_cols.device.type != "cuda":
-        return evaluate_plain(air, lde_cols, periodic, B)
-    kernels.require_int32_cuda(lde_cols, "air lde_cols")
+def _check_inputs(air: Air, lde_cols, periodic, name: str):
+    kernels.require_int32_cuda(lde_cols, f"{name} lde_cols")
     w, N = lde_cols.shape
     if w != air.width or N & (N - 1):
         raise ValueError(f"lde_cols {tuple(lde_cols.shape)}: expected "
@@ -374,18 +478,63 @@ def evaluate(air: Air, lde_cols, periodic, B: int,
     if periodic.shape != (air.num_periodic, N):
         raise ValueError(f"periodic {tuple(periodic.shape)}: expected "
                          f"({air.num_periodic}, {N})")
-    lde_cols = lde_cols.contiguous()
     per = periodic.contiguous()
     if air.num_periodic:
-        kernels.require_int32_cuda(per, "air periodic")
-    lib, nk = build(air, max_nodes)
+        kernels.require_int32_cuda(per, f"{name} periodic")
+    return lde_cols.contiguous(), per, N
+
+
+def evaluate(air: Air, lde_cols, periodic, B: int,
+             max_nodes: int = MAX_NODES_PER_KERNEL) -> torch.Tensor:
+    """Constraint block (K, N) of `air` over lde_cols (w, N) and the
+    periodic LDEs (P, N), all int32 Montgomery.  Kernel K6 (evaluate mode)
+    on a CUDA tensor; the plain version on a CPU tensor.  No prover path
+    calls it since the alpha combination moved into `combine`; it stays
+    to show which constraint is wrong when `combine` disagrees.
+    `max_nodes` caps one generated kernel's graph (see `groups`)."""
+    if lde_cols.device.type != "cuda":
+        return evaluate_plain(air, lde_cols, periodic, B)
+    lde_cols, per, N = _check_inputs(air, lde_cols, periodic, "air")
+    lib, parts = build(air, max_nodes)
     out = torch.empty((air.num_constraints, N), dtype=bb.I32,
                       device=lde_cols.device)
     stream = torch.cuda.current_stream(lde_cols.device).cuda_stream
     per_ptr = kernels.ptr(per) if per.numel() else 0
-    for g in range(nk):
+    for g in range(len(parts)):
         kernels.check(getattr(lib, f"air_launch_{g}")(
             kernels.ptr(lde_cols), per_ptr, kernels.ptr(out), N, B, stream),
             f"air_launch_{g}")
         kernels.count("air_constraints")
+    return out
+
+
+def combine(air: Air, lde_cols, periodic, B: int, apow,
+            max_nodes: int = MAX_NODES_PER_KERNEL) -> torch.Tensor:
+    """The quotient's alpha combination of `air`'s constraints,
+    sum_k C_k(x) apow[k], over lde_cols (w, N) and the periodic LDEs
+    (P, N): (N, 4) int32 Montgomery, equal to
+    `mod_matmul(evaluate(...).T, apow[:K])`.  apow (>= K, 4) Montgomery,
+    on any device.  Kernel K6 in combine mode on a CUDA tensor: no (K, N)
+    block is made; group 0 writes the result and each later group adds
+    to it, in order on the current stream.  The plain version on a CPU
+    tensor."""
+    K = air.num_constraints
+    if apow.shape[0] < K or apow.shape[1:] != (4,):
+        raise ValueError(f"apow {tuple(apow.shape)}: expected (>= {K}, 4)")
+    if lde_cols.device.type != "cuda":
+        return combine_plain(air, lde_cols, periodic, B, apow)
+    lde_cols, per, N = _check_inputs(air, lde_cols, periodic, "air_combine")
+    # the groups' alpha powers go to each launch as a kernel parameter,
+    # from this host copy
+    words = np.ascontiguousarray(bb.to_numpy(apow[:K]))
+    lib, parts = build(air, max_nodes, "combine")
+    out = torch.empty((N, 4), dtype=bb.I32, device=lde_cols.device)
+    stream = torch.cuda.current_stream(lde_cols.device).cuda_stream
+    per_ptr = kernels.ptr(per) if per.numel() else 0
+    base = words.ctypes.data
+    for g, cids in enumerate(parts):
+        kernels.check(getattr(lib, f"air_combine_launch_{g}")(
+            kernels.ptr(lde_cols), per_ptr, kernels.ptr(out),
+            base + 16 * cids[0], N, B, stream), f"air_combine_launch_{g}")
+        kernels.count("air_combine")
     return out

@@ -5,14 +5,15 @@ of `_build_phases`, :458-583).  Pipeline per proof:
 
   1. commit    coset LDE (kernel K1) + Poseidon2 Merkle tree (K2)
   2. quotient  alpha <- transcript; AIR constraints over the LDE domain
-               (generated kernel K6, stark/air_codegen.py), divisor
-               inverses (K7, once per shape), alpha-combination (K3),
-               divisors and boundary terms (K9), coset iNTT and chunk
-               re-evaluation (K1), Merkle (K2)
+               and their alpha-combination in one pass (generated kernel
+               K6, stark/air_codegen.py `combine`), divisor inverses (K7,
+               once per shape), divisors and boundary terms (K9), coset
+               iNTT and chunk re-evaluation (K1), Merkle (K2)
   3. open      zeta <- transcript; trace and quotient at zeta, zeta*g
-               (K1 iNTT, K11 power tables, K3 and K11 evaluation)
-  4. deep      gamma <- transcript; the DEEP composition codeword (K3,
-               then K8)
+               (K1 iNTT, K11 power tables, K3 at both points in one pass,
+               K11 evaluation)
+  4. deep      gamma <- transcript; the DEEP composition codeword (K3 at
+               both openings' powers in one pass, then K8)
   5. fri       fold (K4) + Merkle (K2) per layer, query openings
 
 The transcript order, the host query openings and the proof dict (keys and
@@ -153,18 +154,20 @@ def phase_quotient(air: Air, tb: _Tables, lde_cols, alpha, bound_vals,
     w, N = lde_cols.shape
     K = tb.num_constraints
     nb = len(tb.bounds_struct)
-    # the next row of LDE point i is point i + B (kernel K6 reads it in
-    # place; the plain version rolls the LDE)
-    cons = air_codegen.evaluate(air, lde_cols, tb.periodic, B)    # (K, N)
-    apow = ext.ext_powers(alpha, K + nb, device)                   # (K+nb, 4)
-    # random linear combination of the constraint columns: one modular
-    # matmul (N, K) @ (K, 4), reading the (K, N) stack in place
-    acc = bb.mod_matmul(cons.T, apow[:K])                          # (N, 4)
-    del cons
+    # the alpha powers, made on the host (the combination's kernels take
+    # them as launch parameters)
+    apow = ext.ext_powers(alpha, K + nb, "cpu")                    # (K+nb, 4)
+    # random linear combination of the constraints, sum_k C_k(x) alpha^k:
+    # kernel K6 folds each constraint into the sum as it makes it, so the
+    # (K, N) constraint block of the reference never exists; the next row
+    # of LDE point i is point i + B (read in place; the plain version
+    # rolls the LDE)
+    acc = air_codegen.combine(air, lde_cols, tb.periodic, B, apow)  # (N, 4)
     # the divisors and the boundary terms (kernel K9)
     q_acc = ext.quotient_combine(
         acc, tb.x_minus_glast, tb.inv_stack, lde_cols,
-        [c for (_, c) in tb.bounds_struct], bound_vals, apow[K:K + nb], B)
+        [c for (_, c) in tb.bounds_struct], bound_vals,
+        apow[K:K + nb].to(device), B)
     del acc
     qc_t = ntt.coset_intt(q_acc.T.contiguous(), shift=shift)      # (4, N)
     chunks_t = qc_t.reshape(4, B, n).permute(1, 0, 2)              # (B, 4, n)
@@ -175,8 +178,8 @@ def phase_quotient(air: Air, tb: _Tables, lde_cols, alpha, bound_vals,
 
 def phase_open(cols, chunks, zeta, zeta_g):
     tcoeffs = ntt.intt(cols)
-    t_z = ext.eval_base_poly_at_ext(tcoeffs, zeta)
-    t_zg = ext.eval_base_poly_at_ext(tcoeffs, zeta_g)
+    # the trace at both points in one pass over its coefficients (K3)
+    t_z, t_zg = ext.eval_base_poly_at_ext(tcoeffs, zeta, zeta_g)
     q_z = ext.eval_ext_poly_at_ext(chunks, zeta)
     return t_z, t_zg, q_z
 
@@ -188,13 +191,14 @@ def phase_deep(tb: _Tables, lde_cols, q_lde, t_z, t_zg, q_z, zeta, zeta_g,
     B = q_lde.shape[0]
     gpow = ext.ext_powers(gamma, 2 * w + B, device)
     lde_rows = lde_cols.T
-    # the two column combinations (K3), then 1/(x - zeta), 1/(x - zeta g),
-    # the quotient chunks and the sum in one pass (K8)
-    s1 = bb.mod_matmul(lde_rows, gpow[:w])
-    s2 = bb.mod_matmul(lde_rows, gpow[w:2 * w])
+    # the two column combinations in one pass over the LDE (K3, m = 8),
+    # then 1/(x - zeta), 1/(x - zeta g), the quotient chunks and the sum
+    # in one pass (K8, which reads the two halves of each row in place)
+    s12 = bb.mod_matmul(lde_rows, torch.cat([gpow[:w], gpow[w:2 * w]],
+                                            dim=1))                # (N, 8)
     return ext.deep_compose(
-        tb.pts_m, [(zeta, s1, t_z, gpow[:w]), (zeta_g, s2, t_zg,
-                                               gpow[w:2 * w])],
+        tb.pts_m, [(zeta, s12[:, :4], t_z, gpow[:w]),
+                   (zeta_g, s12[:, 4:], t_zg, gpow[w:2 * w])],
         q_lde=q_lde, q_z=q_z, gq=gpow[2 * w:])
 
 
@@ -216,7 +220,9 @@ def prove(air: Air, trace: np.ndarray, pub_inputs: list[int],
 def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
                      params: StarkParams = StarkParams(), device="cuda"):
     """`prove`, also returning {"phase_s": {phase: wall seconds},
-    "phase_spans": [(phase, start, end) on time.perf_counter()], ...}."""
+    "phase_spans": [(phase, start, end) on time.perf_counter()],
+    "peak_bytes_by_phase": {phase: torch.cuda.max_memory_allocated at
+    its end} (on the card), ...}."""
     device = require_cuda(device)
     n, w = trace.shape
     if w != air.width:
@@ -236,11 +242,15 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
 
     walls: dict = {}
     spans: list = []
+    peaks: dict = {}
     clock = [time.perf_counter()]
 
     def mark(name):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+            # the running peak since the caller last reset it: the phase
+            # where it rises is the one that sets it
+            peaks[name] = torch.cuda.max_memory_allocated(device)
         now = time.perf_counter()
         walls[name] = walls.get(name, 0.0) + (now - clock[0])
         spans.append((name, clock[0], now))
@@ -337,6 +347,7 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
         "openings": openings,
     }
     stats = {"phase_s": walls, "phase_spans": spans,
+             "peak_bytes_by_phase": peaks,
              "total_s": time.perf_counter() - t_start,
              "device": str(device), "n": n, "width": w, "N": N,
              "num_constraints": tb.num_constraints}

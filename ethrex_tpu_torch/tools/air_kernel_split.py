@@ -1,13 +1,15 @@
-"""Time kernel K6 (the generated AIR constraint kernels) for several caps
-on the graph one kernel holds, on one CUDA card.
+"""Time kernel K6 (the generated AIR constraint kernels, in the combine
+mode the prover runs) for several caps on the graph one kernel holds, on
+one CUDA card.
 
     python3 -m ethrex_tpu_torch.tools.air_kernel_split
 
-For each AIR of the batch-proof path at its full LDE size (StateUpdateAir
-115 x 2^22, FriVerifyAir 90 x 2^24) and each cap in `CAPS`, it generates
-the source (`stark/air_codegen.py cuda_source`), builds every source with
-one nvcc each, all started together (`-Xptxas -v`, printed), checks the
-result against the prover's default cap, and prints the median time of 5
+For each of three AIRs of the batch-proof path at its full LDE size
+(StateUpdateAir 115 x 2^22, TransferAir 278 x 2^23, FriVerifyAir 90 x
+2^25) and each cap in `CAPS`, it generates the combine-mode source
+(`stark/air_codegen.py cuda_source`), builds every source with one nvcc
+each, all started together (`-Xptxas -v`, printed), checks the result
+against the prover's default cap, and prints the median time of 5
 launches (CUDA events) and the nvcc wall per source.  Needs a card.
 """
 
@@ -17,10 +19,9 @@ import json
 import statistics
 import subprocess
 
-import numpy as np
 import torch
 
-CAPS = (300, 600, 1200, 2500, 10 ** 6)
+CAPS = (600, 900, 1200, 1800, 2500)
 
 
 def _ms(fn, reps=5):
@@ -44,6 +45,7 @@ def main() -> int:
     from ethrex_tpu_torch import kernels
     from ethrex_tpu_torch.models import fri_verifier_air as fva
     from ethrex_tpu_torch.models import state_update_air as sua
+    from ethrex_tpu_torch.models import transfer_air as ta
     from ethrex_tpu_torch.ops import babybear as bb
     from ethrex_tpu_torch.stark import air_codegen as cg
 
@@ -53,27 +55,33 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     airs = {"StateUpdateAir": (sua.StateUpdateAir(10, seg_periods=16),
                                1 << 22),
-            "FriVerifyAir": (fva.FriVerifyAir(21), 1 << 24)}
-    texts = {(name, cap): cg.cuda_source(cg.record(air), cap)
+            "TransferAir": (ta.TransferAir(), 1 << 23),
+            "FriVerifyAir": (fva.FriVerifyAir(22), 1 << 25)}
+    texts = {(name, cap): cg.cuda_source(cg.record(air), cap, "combine")
              for name, (air, _) in airs.items() for cap in CAPS}
     kernels.build_generated([t for t, _ in texts.values()], verbose=True)
-    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def field(shape):
+        # random residues made on the card (the LDEs are gigabytes)
+        return torch.randint(0, bb.P, shape, generator=gen,
+                             dtype=torch.int32, device=dev)
+
     rows = []
     for name, (air, N) in airs.items():
-        lde = bb.from_numpy(rng.integers(0, bb.P, (air.width, N),
-                                         dtype=np.uint64).astype(np.uint32),
-                            dev)
-        per = bb.from_numpy(rng.integers(
-            0, bb.P, (air.num_periodic, N), dtype=np.uint64).astype(
-            np.uint32), dev)
-        want = cg.evaluate(air, lde, per, 8)
+        lde = field((air.width, N))
+        per = field((air.num_periodic, N))
+        apow = field((air.num_constraints, 4))
+        want = cg.combine(air, lde, per, 8, apow)
         for cap in CAPS:
-            got = cg.evaluate(air, lde, per, 8, max_nodes=cap)
+            got = cg.combine(air, lde, per, 8, apow, max_nodes=cap)
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} cap {cap} differs")
             del got
             text, nk = texts[(name, cap)]
-            ms = _ms(lambda: cg.evaluate(air, lde, per, 8, max_nodes=cap))
+            ms = _ms(lambda: cg.combine(air, lde, per, 8, apow,
+                                        max_nodes=cap))
             rows.append(dict(air=name, cap=cap, kernels=nk, ms=ms,
                              nvcc_s=round(kernels.GENERATED_BUILD_S.get(
                                  kernels._generated_key(text), 0.0), 1)))

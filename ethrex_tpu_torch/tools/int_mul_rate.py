@@ -20,7 +20,11 @@ This script measures that cost instead of assuming it:
 
 It prints one JSON line: the SASS histogram, each rate, and
 `slots_per_mont`, the sum over the product's multiply opcodes of the
-IMAD rate over that opcode's rate.
+IMAD rate over that opcode's rate.  The same two measures are taken of a
+raw product summed lazily (`bb::mad`, with a `bb::fold` after every
+fourth term, as kernels K3 and K6 sum the alpha combination):
+`slots_per_raw` from its opcodes, `slots_per_raw_by_rate` from its rate
+(`rate_raw`).
 """
 
 from __future__ import annotations
@@ -60,6 +64,51 @@ extern "C" __global__ void probe_16(uint32_t* io, uint32_t y) {
   io[threadIdx.x] = chain<16>(io[threadIdx.x], y);
 }
 
+// raw products summed lazily, as K3 and K6's alpha combination do: a
+// multiply-add a term and a fold after every fourth
+template <int K>
+__device__ __forceinline__ unsigned long long raw_chain(const uint32_t* x,
+                                                        uint32_t y) {
+  unsigned long long acc = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    acc = bb::mad(x[i * 32], y, acc);
+    if (i % 4 == 3) acc = bb::fold(acc);
+  }
+  return acc;
+}
+
+extern "C" __global__ void probe_raw_0(unsigned long long* out,
+                                       const uint32_t* x, uint32_t y) {
+  out[threadIdx.x] = raw_chain<0>(x + threadIdx.x, y);
+}
+extern "C" __global__ void probe_raw_16(unsigned long long* out,
+                                        const uint32_t* x, uint32_t y) {
+  out[threadIdx.x] = raw_chain<16>(x + threadIdx.x, y);
+}
+
+// 8 independent lazy sums a thread; each term's multiplicand is the
+// sum's low word (a chain the compiler cannot hoist), 4 terms a fold
+extern "C" __global__ void rate_raw(uint32_t* out, uint32_t y, int iters) {
+  unsigned long long x[8];
+  uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) x[c] = t * 8u + c;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) x[c] = bb::mad((uint32_t)x[c], y, x[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) x[c] = bb::fold(x[c]);
+  }
+  uint32_t s = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s ^= (uint32_t)x[c] ^ (uint32_t)(x[c] >> 32);
+  out[t] = s;
+}
+
 #define RATE_KERNEL(NAME, STEP)                                          \
   extern "C" __global__ void NAME(uint32_t* out, uint32_t y, int iters) { \
     uint32_t x[8];                                                        \
@@ -86,6 +135,7 @@ extern "C" int launch(const char* name, void* out, unsigned y, int iters,
   if (!strcmp(name, "rate_wide")) fn = (void*)rate_wide;
   if (!strcmp(name, "rate_hi")) fn = (void*)rate_hi;
   if (!strcmp(name, "rate_mont")) fn = (void*)rate_mont;
+  if (!strcmp(name, "rate_raw")) fn = (void*)rate_raw;
   if (!fn) return -1;
   void* args[] = {&out, &y, &iters};
   cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args, 0, 0);
@@ -139,6 +189,9 @@ def main() -> int:
     added = per["probe_16"] - per["probe_0"]
     per_mont = {op: n / CHAIN for op, n in sorted(added.items())
                 if not any(t in op for t in _NOT_MUL)}
+    added_raw = per["probe_raw_16"] - per["probe_raw_0"]
+    per_raw = {op: n / CHAIN for op, n in sorted(added_raw.items())
+               if not any(t in op for t in _NOT_MUL)}
 
     lib = ctypes.CDLL(str(so))
     lib.launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_uint,
@@ -149,7 +202,8 @@ def main() -> int:
     out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
     clock_hz = float(_smi("clocks.max.sm")) * 1e6
     rates = {}
-    for name in ("rate_imad", "rate_wide", "rate_hi", "rate_mont"):
+    for name in ("rate_imad", "rate_wide", "rate_hi", "rate_mont",
+                 "rate_raw"):
         def run():
             kernels.check(lib.launch(name.encode(), out.data_ptr(), 12345,
                                      ITERS, blocks, threads), name)
@@ -164,7 +218,9 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             best = min(best, start.elapsed_time(end) / 1e3)
-        ops = blocks * threads * ITERS * LANES
+        # rate_raw does four products a lane and iteration
+        ops = blocks * threads * ITERS * LANES * (4 if name == "rate_raw"
+                                                  else 1)
         rates[name] = dict(s=best, per_s=ops / best,
                            per_sm_per_clk=ops / best / sms / clock_hz)
     imad = rates["rate_imad"]["per_sm_per_clk"]
@@ -182,6 +238,14 @@ def main() -> int:
         "rates": rates, "slots_per_opcode": slot,
         "slots_per_mont": slots,
         "mont_per_s": rates["rate_mont"]["per_s"],
+        "sass_multiplies_per_raw": per_raw,
+        # slots by the opcode count, and by the measured rate of lazily
+        # summed raw products against the IMAD rate
+        "slots_per_raw": sum(n * slot.get(op, slot.get(op.split(".")[0],
+                                                       1.0))
+                             for op, n in per_raw.items()),
+        "slots_per_raw_by_rate": imad / rates["rate_raw"]["per_sm_per_clk"],
+        "raw_per_s": rates["rate_raw"]["per_s"],
     }), flush=True)
     return 0
 

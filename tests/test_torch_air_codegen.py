@@ -1,18 +1,32 @@
 """Kernel K6's generator (`ethrex_tpu_torch/stark/air_codegen.py`) on the
 CPU: the graph recorded from each AIR of the port's path, run by a plain
 PyTorch interpreter, equals `air.constraints` under `DeviceOps` (the
-kernel's plain version), and the generated CUDA source is deterministic.
-The kernel itself runs only on a card (tests/test_torch_cuda.py).
+kernel's plain version); `combine` (the quotient's alpha combination,
+the prover's path) equals the reference's `acc` (the JAX AIR's
+constraints under the JAX `DeviceOps`, then
+`ethrex_tpu.ops.babybear.mod_matmul(cons.T, apow[:K])`); and the
+generated CUDA source of both modes is deterministic.  The kernels
+themselves run only on a card (tests/test_torch_cuda.py).
 
 Bar: bit-equality; all arithmetic is exact.  Inputs are seeded numpy.
 """
 
 import re
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ethrex_tpu.models import bytecode_air as jbca
+from ethrex_tpu.models import fri_verifier_air as jfva
+from ethrex_tpu.models import poseidon2_air as jpair
+from ethrex_tpu.models import state_update_air as jsua
+from ethrex_tpu.models import token_air as jtka
+from ethrex_tpu.models import transfer_air as jta
+from ethrex_tpu.ops import babybear as jbb
+from ethrex_tpu.ops import ext as jext
+from ethrex_tpu.stark.air import DeviceOps as JDeviceOps
 from ethrex_tpu_torch.models import bytecode_air as bca
 from ethrex_tpu_torch.models import fri_verifier_air as fva
 from ethrex_tpu_torch.models import poseidon2_air as pair
@@ -20,6 +34,7 @@ from ethrex_tpu_torch.models import state_update_air as sua
 from ethrex_tpu_torch.models import token_air as tka
 from ethrex_tpu_torch.models import transfer_air as ta
 from ethrex_tpu_torch.ops import babybear as bb
+from ethrex_tpu_torch.ops import ext
 from ethrex_tpu_torch.stark import air_codegen as cg
 from ethrex_tpu_torch.stark.air import DeviceOps
 
@@ -30,6 +45,15 @@ AIRS = {
     "TransferAir": ta.TransferAir,
     "TokenAir": tka.TokenAir,
     "BytecodeAir": bca.BytecodeAir,
+}
+# the same AIRs in the JAX package
+JAX_AIRS = {
+    "StateUpdateAir": lambda: jsua.StateUpdateAir(2, seg_periods=8),
+    "Poseidon2SpongeAir": lambda: jpair.Poseidon2SpongeAir(3),
+    "FriVerifyAir": lambda: jfva.FriVerifyAir(7, 16),
+    "TransferAir": jta.TransferAir,
+    "TokenAir": jtka.TokenAir,
+    "BytecodeAir": jbca.BytecodeAir,
 }
 
 
@@ -64,6 +88,34 @@ def test_interpreted_graph_equals_device_ops(name):
     assert torch.equal(got, want)
     # the wrapper takes the plain version for a CPU tensor
     assert torch.equal(cg.evaluate(air, lde, per, B), want)
+
+
+@pytest.mark.parametrize("name", sorted(AIRS))
+def test_combine_equals_the_reference_acc(name):
+    """A 32-row trace at blowup 8 (N = 256), zeros and ones mixed in."""
+    air, jair = AIRS[name](), JAX_AIRS[name]()
+    N, B = 256, 8
+    K = air.num_constraints
+    lde = _field(11, (air.width, N))
+    per = _field(12, (air.num_periodic, N))
+    lde[:, ::3] = 0
+    lde[:, 2::7] = bb.MONT_ONE
+    alpha = bb.to_numpy(_field(13, (4,)))
+    apow = ext.ext_powers(bb.from_numpy(alpha, "cpu"), K + 3)
+    got = cg.combine(air, lde, per, B, apow)
+    assert got.shape == (N, 4)
+    lde_np, per_np = bb.to_numpy(lde), bb.to_numpy(per)
+    rolled = np.roll(lde_np, -B, axis=1)
+    cons = jnp.stack([jnp.broadcast_to(c, (N,)) for c in jair.constraints(
+        [jnp.asarray(r) for r in lde_np], [jnp.asarray(r) for r in rolled],
+        [jnp.asarray(r) for r in per_np], JDeviceOps())])
+    want = jbb.mod_matmul(cons.T, jext.ext_powers(jnp.asarray(alpha), K))
+    assert np.array_equal(bb.to_numpy(got), np.asarray(want))
+    # the plain version is what the CPU runs, and equals the evaluate
+    # form's block combined by K3's plain version
+    assert torch.equal(got, cg.combine_plain(air, lde, per, B, apow))
+    assert torch.equal(got, bb.mod_matmul(cg.evaluate(air, lde, per, B).T,
+                                          apow[:K]))
 
 
 @pytest.mark.parametrize("name", sorted(AIRS))

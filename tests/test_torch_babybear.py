@@ -128,6 +128,27 @@ def test_mod_matmul_bit_equal(k, montgomery):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("montgomery", [True, False])
+@pytest.mark.parametrize("n,k", [(33, 115), (70, 354), (5, 9000)])
+def test_mod_matmul_m8_equals_two_jax_calls(n, k, montgomery):
+    """Two right-hand sides side by side (the deep and open phases' pairs)
+    give the two JAX products as columns 0-3 and 4-7."""
+    rng = np.random.default_rng(n + k)
+    a = _field(rng, (k, n)).T            # column-major, as the LDE rows
+    b1, b2 = _field(rng, (k, 4)), _field(rng, (k, 4))
+    a[0, :] = P - 1
+    b2[:, 3] = P - 1
+    got = _np(bb.mod_matmul(_t(np.ascontiguousarray(a.T)).T,
+                            _t(np.concatenate([b1, b2], axis=1)),
+                            montgomery=montgomery))
+    assert got.shape == (n, 8)
+    a = np.ascontiguousarray(a)
+    assert np.array_equal(got[:, :4], np.asarray(
+        jbb.mod_matmul(a, b1, montgomery=montgomery)))
+    assert np.array_equal(got[:, 4:], np.asarray(
+        jbb.mod_matmul(a, b2, montgomery=montgomery)))
+
+
 def test_mod_matmul_reads_strided_operand():
     rng = np.random.default_rng(8)
     a = _field(rng, (159, 64))       # (K, N) stack, used transposed

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K11 and the four slice-4 kernels (ext_inv,
+"""The CUDA kernels K1-K11 (K6 in both its modes: the constraint block
+and its fused alpha combination) and the four slice-4 kernels (ext_inv,
 ext_batch_inv, eval_poly_at, to_mont_cols) against their plain PyTorch
 versions on the card, at small and ragged shapes that reach every branch
 of the NTT's pass plan and the Merkle subtree plan (chip_smoke.py covers
@@ -166,6 +167,23 @@ def test_mod_matmul_kernel_equals_plain(dev, n, k):
     assert torch.equal(bb.mod_matmul(at, b), bb.mod_matmul_plain(a, b))
 
 
+@pytest.mark.parametrize("n,k", [(1, 1), (33, 9), (5000, 278), (300, 257),
+                                 (115, 9000), (354, 4097), (7, 70000)])
+def test_mod_matmul_m8_kernel_equals_plain(dev, n, k):
+    """m = 4 and m = 8 (the deep and open phases' pairs), both modes, the
+    operand read in place column-major (the LDE rows) and row-major (the
+    coefficients: split-k above 4,096); worst-case rows and columns."""
+    a = _field(n * k, (k, n), dev).T        # column-major view
+    a[0] = bb.P - 1
+    for m in (4, 8):
+        b = _field(k + m, (k, m), dev)
+        b[:, -1] = bb.P - 1
+        for mont in (True, False):
+            want = bb.mod_matmul_plain(a, b, mont)
+            assert torch.equal(bb.mod_matmul(a, b, mont), want)
+            assert torch.equal(bb.mod_matmul(a.contiguous(), b, mont), want)
+
+
 def test_fold_kernel_equals_plain(dev):
     cw = _field(3, (512, 4), dev)
     beta = _field(4, (4,), dev)
@@ -213,6 +231,52 @@ def test_air_kernel_equals_plain(dev, air):
     assert torch.equal(got, air_codegen.evaluate_plain(air, lde, per, B))
     graph = air_codegen.record(air)
     assert torch.equal(got, air_codegen.interpret(graph, lde, per, B))
+
+
+@pytest.mark.parametrize("air", [
+    sua.StateUpdateAir(2, seg_periods=8), pair.Poseidon2SpongeAir(3),
+    fva.FriVerifyAir(7, 16), ta.TransferAir(), tka.TokenAir(),
+    bca.BytecodeAir()], ids=lambda a: type(a).__name__)
+def test_air_combine_kernel_equals_plain(dev, air):
+    """K6 with the alpha combination fused in, against `combine_plain`
+    and against K3 over the evaluate form's block."""
+    N, B = 1 << 12, 8
+    K = air.num_constraints
+    lde = _field(air.width + 7, (air.width, N), dev)
+    per = _field(air.num_periodic + 8, (air.num_periodic, N), dev)
+    lde[:, ::9] = bb.P - 1
+    apow = _field(K, (K + 2, 4), dev)
+    apow[::5] = bb.P - 1
+    kernels.reset_launches()
+    got = air_codegen.combine(air, lde, per, B, apow)
+    assert kernels.LAUNCHES["air_combine"] == len(air_codegen.groups(
+        air_codegen.record(air)))
+    assert kernels.LAUNCHES["air_constraints"] == 0
+    assert got.shape == (N, 4)
+    assert torch.equal(got, air_codegen.combine_plain(air, lde, per, B,
+                                                      apow))
+    assert torch.equal(got, bb.mod_matmul(
+        air_codegen.evaluate(air, lde, per, B).T, apow[:K]))
+    # apow may come from the host, as the prover passes it
+    assert torch.equal(air_codegen.combine(air, lde, per, B, apow.cpu()),
+                       got)
+
+
+def test_deep_compose_reads_paired_halves(dev):
+    """K8 reads the two openings' sums as the halves of one (N, 8) K3
+    result in place; the same as from contiguous copies."""
+    N, w = 1 << 12, 7
+    pts = _field(1, (N,), dev)
+    s12 = _field(2, (N, 8), dev)
+    opens = [(_ext_point(10 + o), s12[:, 4 * o:4 * o + 4],
+              _field(30 + o, (w, 4), dev), _field(40 + o, (w, 4), dev))
+             for o in range(2)]
+    q = dict(q_lde=_field(5, (8, 4, N), dev), q_z=_field(6, (8, 4), dev),
+             gq=_field(7, (8, 4), dev))
+    got = ext.deep_compose(pts, opens, **q)
+    flat = [(z, S.contiguous(), t, g) for z, S, t, g in opens]
+    assert torch.equal(got, ext.deep_compose(pts, flat, **q))
+    assert torch.equal(got, ext.deep_compose_plain(pts, opens, **q))
 
 
 def _g1_points(rng, n):
@@ -301,6 +365,18 @@ def test_powers_table_kernel_equals_plain(dev, n):
     z = _ext_point(n)
     got = ext.powers_table(z, n, dev)
     assert torch.equal(got, ext.ext_powers_blocked(z, n, device=dev))
+
+
+@pytest.mark.parametrize("n", [5, 4096, 70000])
+def test_powers_table_kernel_fills_column_blocks(dev, n):
+    # two points' tables in the column blocks of one (n, 8) table, as the
+    # open phase's two-point evaluation lays them out
+    z1, z2 = _ext_point(n), _ext_point(n + 1)
+    pows = torch.zeros((n, 8), dtype=torch.int32, device=dev)
+    ext.powers_table(z1, n, out=pows[:, :4])
+    ext.powers_table(z2, n, out=pows[:, 4:])
+    assert torch.equal(pows[:, :4], ext.ext_powers_blocked(z1, n, device=dev))
+    assert torch.equal(pows[:, 4:], ext.ext_powers_blocked(z2, n, device=dev))
 
 
 @pytest.mark.parametrize("rows,n", [(1, 3), (8, 1000), (4, 1 << 15)])
@@ -406,9 +482,11 @@ def test_small_vm_stages_on_the_card_equal_cpu(dev):
     kernels.reset_launches()
     on_card, _, _ = gpu_backend.prove_vm_stages(*args, device=dev,
                                                params=params)
-    for name in ("air_constraints", "quotient_combine", "deep_compose",
-                 "ext_poly_eval", "to_mont_cols", "poseidon2_merkle_subtree"):
+    for name in ("air_combine", "quotient_combine", "deep_compose",
+                 "ext_poly_eval", "to_mont_cols", "poseidon2_merkle_subtree",
+                 "mod_matmul"):
         assert kernels.LAUNCHES[name] > 0, name
+    assert kernels.LAUNCHES["air_constraints"] == 0
     on_cpu, _, _ = gpu_backend.prove_vm_stages(*args, device="cpu",
                                               params=params)
     assert on_card == on_cpu

@@ -87,6 +87,18 @@ def test_eval_base_poly_at_ext_bit_equal(n):
                jext.eval_base_poly_at_ext(coeffs, z))
 
 
+@pytest.mark.parametrize("n", [64, 1000, 1 << 13])
+def test_eval_base_poly_at_two_points_equals_two_jax_calls(n):
+    """The open phase's two points in one pass (K3 at m = 8) equal two
+    calls of the JAX function; above 4,096 coefficients the card takes
+    the split-k kernel, so the CPU runs the same wrapper at that size."""
+    coeffs, z1, z2 = _field(8, (5, n)), _field(9, (4,)), _field(10, (4,))
+    got1, got2 = ext.eval_base_poly_at_ext(_t(coeffs), _t(z1), _t(z2))
+    assert got1.shape == got2.shape == (5, 4)
+    assert _eq(got1, jext.eval_base_poly_at_ext(coeffs, z1))
+    assert _eq(got2, jext.eval_base_poly_at_ext(coeffs, z2))
+
+
 def test_eval_ext_poly_at_ext_bit_equal():
     coeffs, z = _field(8, (8, 64, 4)), _field(9, (4,))
     assert _eq(ext.eval_ext_poly_at_ext(_t(coeffs), _t(z)),

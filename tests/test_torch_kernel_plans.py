@@ -1,5 +1,6 @@
-"""The index math of kernels K1 (NTT) and K2 (Merkle subtrees), rehearsed
-on the CPU.
+"""The index math of kernels K1 (NTT) and K2 (Merkle subtrees), and the
+lazy 64-bit sums of K3 (modular matmul) and K6 (the AIR constraints'
+alpha combination), rehearsed on the CPU.
 
 The CUDA kernels take their pass plans from the Python wrappers
 (`ntt.ntt_plan`, `ntt.radix_rounds`, the twiddle tables, and
@@ -16,6 +17,8 @@ Bar: bit-equality; all arithmetic is exact.  Shapes stay small (log n <=
 12, trees of at most 2^12 leaves).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -23,10 +26,12 @@ import torch
 from ethrex_tpu.ops import babybear as jbb
 from ethrex_tpu.ops import merkle as jmerkle
 from ethrex_tpu.ops import ntt as jntt
+from ethrex_tpu_torch import kernels
 from ethrex_tpu_torch.ops import babybear as bb
 from ethrex_tpu_torch.ops import merkle
 from ethrex_tpu_torch.ops import ntt
 from ethrex_tpu_torch.ops import poseidon2 as p2
+from ethrex_tpu_torch.stark import air_codegen as cg
 
 P = np.uint64(bb.P)
 
@@ -297,3 +302,211 @@ def test_subtree_plan_covers_every_level(log_m):
         assert len(plan) <= 3
     offs = merkle.level_offsets(m)
     assert len(offs) == log_m + 1 and offs[-1] == 2 * m - 2
+
+
+# ---------------------------------------------------------------------------
+# K3 and K6: the lazy 64-bit sums of raw products
+# ---------------------------------------------------------------------------
+#
+# Both kernels add raw products (a * b < p^2) into 64-bit accumulators
+# with one multiply-add each (bb::mad), fold an accumulator below 2^60
+# after every fourth term (bb::fold) and reduce it once (bb::redc).  The
+# models below do the same steps in the same order in numpy uint64 and
+# fail on any wrap of 2^64 (where the kernel would lose a carry); each is
+# held against `ethrex_tpu.ops.babybear.mod_matmul`, on random inputs and
+# on the worst case (every value p - 1).
+
+_MASK = np.uint64(0xFFFFFFFF)
+_PINV = np.uint64(pow(bb.P, -1, 1 << 32))
+_R2 = np.uint64(bb._R2)
+
+
+def _cu_constants(name: str) -> dict:
+    """The `constexpr int` constants of a kernel source."""
+    src = (kernels.CSRC / name).read_text()
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+
+
+def _mad(acc, a, b):
+    out = acc + a.astype(np.uint64) * b.astype(np.uint64)
+    assert (out >= acc).all(), "64-bit accumulator wrapped"
+    return out
+
+
+def _fold(x):
+    return (x >> np.uint64(32)) * np.uint64(bb.MONT_ONE) + (x & _MASK)
+
+
+def _redc(x):
+    assert (x < P << np.uint64(32)).all(), "redc input not below p 2^32"
+    m = ((x & _MASK) * _PINV) & _MASK
+    t = (x >> np.uint64(32)).astype(np.int64) - (
+        (m * P) >> np.uint64(32)).astype(np.int64)
+    return np.where(t < 0, t + int(P), t).astype(np.uint64)
+
+
+def _finish(acc, montgomery):
+    r = _redc(_fold(acc))
+    return r if montgomery else _redc(r * _R2)
+
+
+def model_k_rows(a, b, montgomery=True):
+    """`k_rows`: per row, b in tiles of KTILE rows, ROWS_UNROLL terms a
+    step with a fold after every fourth, the tile's tail folded after
+    each term."""
+    c = _cu_constants("mod_matmul.cu")
+    tile, unroll = c["KTILE"], c["ROWS_UNROLL"]
+    n, k = a.shape
+    acc = np.zeros((n, b.shape[1]), dtype=np.uint64)
+    for k0 in range(0, k, tile):
+        kt = min(tile, k - k0)
+        kk = 0
+        while kk + unroll <= kt:
+            for u in range(unroll):
+                j = k0 + kk + u
+                acc = _mad(acc, a[:, j, None], b[None, j])
+                if u % 4 == 3:
+                    acc = _fold(acc)
+            kk += unroll
+        for j in range(k0 + kk, k0 + kt):
+            acc = _fold(_mad(acc, a[:, j, None], b[None, j]))
+    return _finish(acc, montgomery)
+
+
+def model_k_splitk(a, b, montgomery=True):
+    """`k_splitk` then `k_splitk_finish`: thread t of slice s takes
+    positions s CHUNK + u THREADS + t (u < UNROLL, a fold after every
+    fourth), reduces its sum, and the block and then the slices add the
+    residues."""
+    c = _cu_constants("mod_matmul.cu")
+    threads, unroll = c["SPLIT_THREADS"], c["SPLIT_UNROLL"]
+    chunk = threads * unroll
+    n, k = a.shape
+    splits = -(-k // chunk)
+    part = np.zeros((n, splits, b.shape[1]), dtype=np.uint64)
+    for s in range(splits):
+        acc = np.zeros((n, threads, b.shape[1]), dtype=np.uint64)
+        for u in range(unroll):
+            kk = s * chunk + u * threads + np.arange(threads)
+            ok = kk < k
+            kc = np.where(ok, kk, 0)
+            av = np.where(ok[None], a[:, kc], 0).astype(np.uint64)
+            bv = np.where(ok[:, None], b[kc], 0).astype(np.uint64)
+            acc = _mad(acc, av[:, :, None], bv[None])
+            if u % 4 == 3:
+                acc = _fold(acc)
+        part[:, s] = _redc(_fold(acc)).sum(axis=1) % P
+    r = part.sum(axis=1) % P
+    return r if montgomery else _redc(r * _R2)
+
+
+@pytest.mark.parametrize("worst", [False, True])
+@pytest.mark.parametrize("montgomery", [True, False])
+@pytest.mark.parametrize("k,m", [(1, 4), (7, 8), (8, 4), (9, 8), (255, 4),
+                                 (257, 8), (924, 4), (4101, 8)])
+def test_k3_rows_model_equals_jax_mod_matmul(k, m, montgomery, worst):
+    n = 5
+    a, b = _field(k, (n, k)), _field(k + 1, (k, m))
+    if worst:
+        a[:], b[:] = bb.P - 1, bb.P - 1
+    got = model_k_rows(a.astype(np.uint64), b.astype(np.uint64), montgomery)
+    want = np.asarray(jbb.mod_matmul(a, b, montgomery=montgomery))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("worst", [False, True])
+@pytest.mark.parametrize("montgomery", [True, False])
+@pytest.mark.parametrize("k,m", [(4097, 4), (9000, 8)])
+def test_k3_splitk_model_equals_jax_mod_matmul(k, m, montgomery, worst):
+    n = 3
+    a, b = _field(k, (n, k)), _field(k + 1, (k, m))
+    if worst:
+        a[:], b[:] = bb.P - 1, bb.P - 1
+    got = model_k_splitk(a.astype(np.uint64), b.astype(np.uint64),
+                         montgomery)
+    want = np.asarray(jbb.mod_matmul(a, b, montgomery=montgomery))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+_MAD_LINE = re.compile(r"c(\d) = bb::mad\(v(\d+), ap\.w\[(\d+)\], c\1\);")
+
+
+def model_combine(graph, cons, apow):
+    """K6 in combine mode as generated: per group kernel, the events of
+    its source in order (a mad line adds v_k apow[k] to the four sums, a
+    fold line folds them), one fold and redc at the end, and each later
+    group's result added mod p to the earlier ones'.  cons (K, N), apow
+    (K, 4) uint64 Montgomery."""
+    text, nk = cg.cuda_source(graph, mode="combine")
+    parts = cg.groups(graph)
+    bodies = text.split("__global__")[1:]
+    assert len(bodies) == len(parts) == nk
+    out = None
+    for gi, (cids, body) in enumerate(zip(parts, bodies)):
+        acc = np.zeros((cons.shape[1], 4), dtype=np.uint64)
+        seen = []
+        for line in body.splitlines():
+            mads = _MAD_LINE.findall(line)
+            if mads:
+                w0 = int(mads[0][2])
+                assert [(int(j), int(v), int(w)) for j, v, w in mads] == [
+                    (j, int(mads[0][1]), w0 + j) for j in range(4)]
+                kc = cids[0] + w0 // 4
+                assert graph.outputs[kc] == int(mads[0][1])
+                seen.append(kc)
+                acc = _mad(acc, cons[kc][:, None], apow[kc][None])
+            elif "c0 = bb::fold(c0);" in line:
+                acc = _fold(acc)
+        assert sorted(seen) == list(cids)      # every constraint once
+        assert ("const uint4 q = *o;" in body) == (gi > 0)
+        r = _redc(_fold(acc))
+        out = r if gi == 0 else (out + r) % P
+    return out
+
+
+PATH_AIRS = {
+    "StateUpdateAir": lambda: _air("state_update_air").StateUpdateAir(
+        10, seg_periods=16),
+    "TransferAir": lambda: _air("transfer_air").TransferAir(),
+    "TokenAir": lambda: _air("token_air").TokenAir(),
+    "BytecodeAir": lambda: _air("bytecode_air").BytecodeAir(),
+    "Poseidon2SpongeAir": lambda: _air("poseidon2_air").Poseidon2SpongeAir(
+        10),
+    "FriVerifyAir": lambda: _air("fri_verifier_air").FriVerifyAir(22),
+}
+
+
+def _air(module: str):
+    import importlib
+
+    return importlib.import_module(f"ethrex_tpu_torch.models.{module}")
+
+
+@pytest.mark.parametrize("name", sorted(PATH_AIRS))
+def test_combine_model_equals_jax_mod_matmul(name):
+    """The path's AIRs at their full structure, random constraint values
+    and alpha powers (the model takes the values; the kernel's order
+    comes from its source)."""
+    graph = cg.record(PATH_AIRS[name]())
+    K = graph.num_constraints
+    cons, apow = _field(K, (K, 16)), _field(K + 1, (K, 4))
+    got = model_combine(graph, cons.astype(np.uint64),
+                        apow.astype(np.uint64))
+    want = np.asarray(jbb.mod_matmul(cons.T.copy(), apow))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+def test_combine_model_worst_case_at_the_largest_air():
+    """Every constraint value and alpha power p - 1, in the generated
+    order of the path's AIR with the most constraints."""
+    graphs = [cg.record(make()) for make in PATH_AIRS.values()]
+    graph = max(graphs, key=lambda g: g.num_constraints)
+    K = graph.num_constraints
+    assert K >= 924
+    cons = np.full((K, 4), bb.P - 1, dtype=np.uint32)
+    apow = np.full((K, 4), bb.P - 1, dtype=np.uint32)
+    got = model_combine(graph, cons.astype(np.uint64),
+                        apow.astype(np.uint64))
+    want = np.asarray(jbb.mod_matmul(cons.T.copy(), apow))
+    assert np.array_equal(got.astype(np.uint32), want)
