@@ -12,7 +12,8 @@ Phases:
      in both modes (the fused alpha combination and the test-only
      constraint block), one nvcc per source, all started together;
   3. hold every kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it (bit-equal), and time both with
+     the shapes the main path gives it (bit-equal; K5 in phase 8), and
+     time both with
      CUDA events, beside each kernel's bound: K1 (the coset LDE) and K2
      (the leaf hash and the Merkle tree above it) at every distinct shape
      of the path (state 115 x 2^19, TransferAir 278 x 2^20, outer 90 x
@@ -58,9 +59,16 @@ Phases:
      x 115) and a 512-limb binding proof (64 chunks), then
      `prover.gpu_backend.prove_formats(..., "groth16")` over the two, with
      the checks of phase 6;
-  8. K5 against its plain version on the wrap's own MSM inputs; a small
-     state proof made on the card equals the same proof made by the plain
-     versions on the CPU;
+  8. the main path's wrap proved once more (`wrap_prove` of its digest)
+     with host timers on its parts (witness, `is_satisfied`, `_h_coeffs`,
+     point and scalar conversion, MSM calls, host curve arithmetic), CUDA
+     events on K5 and torch.profiler's device time per K5 function; K5
+     against its plain version on all four of the wrap's MSMs (a_query,
+     b1_query, k_query + h_query on G1, b2_query on G2), held equal as
+     group elements, each timed beside two bounds (the bucket method's
+     and the double-and-add's), with K5's registers and spills from this
+     run's ptxas report; a small state proof made on the card equals the
+     same proof made by the plain versions on the CPU;
   9. a line with each kernel's time before its current design (from
      PERF.md; not measured here), one JSON line with every kernel's
      launches (per path), error, times, bound and device time on the path,
@@ -104,10 +112,16 @@ SLOTS_PER_RAW = 2 * 1.125 + 0.0625
 # wide a_i*b_j and 8 x 8 wide m*p_j (IMAD.WIDE.U32, 2 slots each) plus 8
 # low products m = t0 * NP (IMAD, 1 slot); an Fp2 product is 3 of them
 SLOTS_PER_BN254_MUL = 2 * 128 + 8
-# products of a Jacobian doubling and addition (csrc/bn254_msm.cu
-# `pdbl`, `padd`)
+# products of a Jacobian doubling, addition and mixed addition
+# (csrc/bn254.cuh `pdbl`, `padd`, `madd`)
 BN254_DBL_MULS = 7
 BN254_ADD_MULS = 16
+BN254_MADD_MULS = 11
+# device launches of one K5 call (csrc/bn254_msm.cu `run_msm`) and its
+# device functions, each a template over Fp (G1) and Fp2 (G2)
+K5_FUNCTIONS = ("k_digits", "k_scan", "k_scatter", "k_bucket_acc",
+                "k_window_sum", "k_combine")
+K5_BASES_FUNCTIONS = ("k_shift", "k_affine")
 # each kernel's time at its timed shape before its current design
 # (PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3 at 700 W):
 # not measured by this run, so logged on a line of its own.
@@ -115,12 +129,13 @@ BN254_ADD_MULS = 16
 # K8, K9, K11 the outer shape, K10 the fused step's layers; K3 the state
 # deep phase's two m = 4 calls, and the fused K6 TransferAir's block
 # (38.613 ms) plus K3's read of it (31.566 ms), both by the kernels
-# before their current design
+# before their current design; K5 the double-and-add kernel that the
+# bucket MSM replaced, at 6,990 G1 points and 2,897 G2 points
 EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
               "poseidon2_compress_level": 1.065, "mod_matmul": 4.062,
               "fri_fold": 0.073, "air_combine": 70.179,
-              "batch_inv": 2.920, "bn254_msm_g1": 12.246,
-              "bn254_msm_g2": 41.750, "deep_compose": 6.848,
+              "batch_inv": 2.920, "bn254_msm_g1": 12.308,
+              "bn254_msm_g2": 40.577, "deep_compose": 6.848,
               "quotient_combine": 1.567, "merkle_batched_level": 2.909,
               "ext_poly_eval": 4.335}
 # kernels the groth16 paths need not launch: the reference's test-only
@@ -829,7 +844,8 @@ def fused_bound_ms(log_n: int, w: int = 64, log_blowup: int = 2,
 
 def _short_kernel_name(name: str) -> str:
     """A device event's name without namespace, template and arguments:
-    the CUDA function (k_ntt_pass, air_k0, ...), or "torch <kernel>" for
+    the CUDA function (k_ntt_pass, air_k0, ...; K5's G2 template with
+    "<Fp2>": k_bucket_acc<Fp2>), or "torch <kernel>" for
     PyTorch's own, or the copy or fill as the profiler names it."""
     if name.startswith(("Memcpy", "Memset")):
         return name
@@ -837,6 +853,8 @@ def _short_kernel_name(name: str) -> str:
     torch_kernel = "at::" in name
     head = name.split("<")[0].split("(")[0].split("::")[-1].split()
     short = head[-1] if head else name
+    if "Fp2>" in name.split("(")[0]:
+        short += "<Fp2>"                # K5's G2 instantiation
     return f"torch {short}" if torch_kernel else short
 
 
@@ -1024,9 +1042,10 @@ def check_batched_roots(dev, rng, log_n: int, log_blowup: int = 2,
 
 
 def msm_products(bit_rows: np.ndarray, live: np.ndarray) -> int:
-    """Field products the MSM kernel does on these inputs: a doubling per
-    bit of every finite point, an addition per set bit after a point's
-    first, and the tree's additions."""
+    """Field products of the double-and-add MSM (the reference's and K5's
+    before its bucket design) on these inputs: a doubling per bit of
+    every finite point, an addition per set bit after a point's first,
+    and the tree's additions."""
     pop = bit_rows.sum(axis=1).astype(np.int64)
     nbits = bit_rows.shape[1]
     n_live = int(live.sum())
@@ -1035,53 +1054,394 @@ def msm_products(bit_rows: np.ndarray, live: np.ndarray) -> int:
                + max(n_live - 1, 0) * BN254_ADD_MULS)
 
 
+def signed_digits(s: int, c: int) -> int:
+    """Nonzero digits of s in the signed c-bit recoding (digits in
+    [-(2^(c-1) - 1), 2^(c-1)], a carry into the next window)."""
+    count, carry = 0, 0
+    while s or carry:
+        raw = (s & ((1 << c) - 1)) + carry
+        carry = 1 if raw > 1 << (c - 1) else 0
+        count += raw not in (0, 1 << c)
+        s >>= c
+    return count
+
+
+def bucket_products(scalars: list[int]) -> int:
+    """The least field products of a signed-window bucket MSM over a
+    table of bases pre-shifted per window (`msm_with_bases`), for these
+    scalars (those of finite points), whatever window c it takes: the
+    minimum over c = 4..16 of a mixed addition per nonzero digit (what
+    this run's scalars need: a zero digit adds nothing) and two additions
+    per bucket for the running sums.  The table's bases differ from
+    window to window, so one set of 2^(c-1) buckets can serve every
+    window and nothing combines the windows: no doublings, no per-window
+    sums."""
+    best = None
+    for c in range(4, 17):
+        digits = sum(signed_digits(int(s), c) for s in scalars)
+        total = digits * BN254_MADD_MULS + (1 << c) * BN254_ADD_MULS
+        best = total if best is None else min(best, total)
+    return best
+
+
+def bases_products(n_live: int, fp2: bool) -> int:
+    """The least field products (Fp) of K5's table of bases for n_live
+    finite affine points (Z = 1, as the wrap's): WINDOW_BITS doublings
+    between windows, (WINDOWS - 1) WINDOW_BITS a point, then each shifted
+    point of windows 1.. made affine by one batched inversion
+    (Montgomery's trick: 3 products an element and one inverse, 253
+    squarings and 109 products for the set bits of p - 2) and 4 products
+    (Z^-2, Z^-3, X Z^-2, Y Z^-3).  G2: 3 Fp products an Fp2 product, and
+    the inverse through the norm (4 Fp products around the Fp inverse)."""
+    from ethrex_tpu_torch.ops import bn254_msm as msm_ops
+
+    doublings = (msm_ops.WINDOWS - 1) * msm_ops.WINDOW_BITS
+    elements = n_live * (msm_ops.WINDOWS - 1)
+    mult = 3 if fp2 else 1
+    inverse = 362 + (4 if fp2 else 0)
+    return (n_live * doublings * BN254_DBL_MULS * mult
+            + elements * (3 + 4) * mult + (inverse if n_live else 0))
+
+
+def k5_ptxas() -> dict:
+    """Registers and spill bytes of each K5 device function, from the
+    ptxas report (-Xptxas -v) of this run's build of csrc/bn254_msm.cu:
+    {"k_bucket_acc<Fp2>": {"registers": r, "spill_stores": s,
+    "spill_loads": l, "callee_spill_stores": cs, "callee_spill_loads":
+    cl}, ...}, the callee figures summed over the point functions it
+    calls (pdbl, padd, madd: not inlined)."""
+    import re
+
+    from ethrex_tpu_torch import kernels
+
+    out: dict = {}
+    name = mangled = None
+    own = False
+    for line in kernels.BUILD_LOG.get("bn254_msm.cu", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = next((f for f in K5_FUNCTIONS + K5_BASES_FUNCTIONS
+                         if f in mangled), None)
+            name = None if base is None else \
+                base + ("<Fp2>" if "Fp2" in mangled else "")
+            if name:
+                out[name] = dict(registers=None, spill_stores=0,
+                                 spill_loads=0, callee_spill_stores=0,
+                                 callee_spill_loads=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            own = m.group(1) == mangled
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            pre = "" if own else "callee_"
+            out[name][pre + "spill_stores"] += int(m.group(1))
+            out[name][pre + "spill_loads"] += int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def k5_device_ms(fn, runs: int = 5) -> dict:
+    """Mean device ms of each K5 device function in a run of `fn`, from
+    torch.profiler (G2's instantiations named with <Fp2>): the mean over
+    the events recorded in `runs` runs, the profiler's active step after
+    a warm-up step.  The card drops the events of the first launches of
+    a profiler step, so a short step can come back without some of its
+    functions; the mean over several runs does not depend on which."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    total: dict = {}
+    count: dict = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        nm = _short_kernel_name(e.name)
+        if nm.split("<")[0] in K5_FUNCTIONS + K5_BASES_FUNCTIONS:
+            total[nm] = total.get(nm, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[nm] = count.get(nm, 0) + 1
+    return {nm: round(total[nm] / count[nm], 4) for nm in total}
+
+
 def check_msm(dev, pk, z, n_pub) -> dict:
-    """K5 against its plain version on the wrap's own MSM inputs: the G1
-    MSM over k_query + h_query (the largest) and the G2 MSM over
-    b2_query, with the witness of the main path's wrap."""
+    """K5 against its plain version on the wrap's own four MSMs, with the
+    witness of the main path's wrap: a_query and b1_query (G1, the
+    witness), k_query + h_query (G1, the private witness and the
+    quotient's coefficients) and b2_query (G2, the witness).  Per MSM:
+    the table of bases (`msm_bases`, built once per point table; held
+    bit-equal to its plain version at the largest G1 and at the G2
+    shape, timed), then the MSM over it (`msm_with_bases`), held equal to
+    the plain double-and-add as a group element (`same_point`: the two
+    sum in different orders) and run twice for the same Jacobian bits,
+    timed (CUDA events, median of 5), profiled by device function and
+    bounded twice: by the bucket method's least products and by the
+    double-and-add's (the bound of the design it replaced)."""
     from ethrex_tpu_torch.crypto import groth16
     from ethrex_tpu_torch.ops import bn254_msm as msm_ops
 
     r1cs, zz = z
     h = groth16._h_coeffs(r1cs, zz, groth16._domain_size(r1cs))
-    rows = {}
-    for name, pts, scalars, fp2 in (
-            ("bn254_msm_g1", pk.k_query + pk.h_query,
+    ptxas = k5_ptxas()
+    log(f"[kernels] K5 ptxas (registers, spill bytes): {json.dumps(ptxas)}")
+    shapes, tables = {}, {}
+    for tag, name, pts, scalars, fp2 in (
+            ("a_query", "bn254_msm_g1", pk.a_query, list(zz), False),
+            ("b1_query", "bn254_msm_g1", pk.b1_query, list(zz), False),
+            ("k_query+h_query", "bn254_msm_g1", pk.k_query + pk.h_query,
              list(zz[n_pub:]) + h, False),
-            ("bn254_msm_g2", pk.b2_query, list(zz), True)):
+            ("b2_query", "bn254_msm_g2", pk.b2_query, list(zz), True)):
         conv = msm_ops.g2_points_to_device if fp2 else \
             msm_ops.points_to_device
         X, Y, Z = conv(pts, dev)
+        words_np = msm_ops.scalars_to_words(scalars)
+        words = torch.from_numpy(words_np.view(np.int32)).to(dev)
+        mult = 3 if fp2 else 1
+        finite = np.array([p is not None for p in pts])
+        words16 = (2 if fp2 else 1) * 16
+
+        bases = msm_ops.msm_bases(X, Y, Z, fp2)
+        b_ms = cuda_ms(lambda: msm_ops.msm_bases(X, Y, Z, fp2), 3)
+        table = dict(ms=b_ms, max_abs_err=0, plain_ms=None,
+                     shape=f"{len(pts)} points x {msm_ops.WINDOWS} windows")
+        if tag in ("k_query+h_query", "b2_query"):
+            t0 = time.perf_counter()
+            want = msm_ops.msm_bases_plain(X, Y, Z, fp2)
+            torch.cuda.synchronize()
+            table["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(bases, want):
+                raise AssertionError(f"bn254_msm_bases {tag}: the table "
+                                     f"differs from its plain version")
+            del want
+        table["bound_ms"], table["bound_by"] = bound_ms(
+            4 * (3 * len(pts) * words16 + bases.numel()),
+            bases_products(int(finite.sum()), fp2), SLOTS_PER_BN254_MUL)
+        table["device_ms_by_function"] = k5_device_ms(
+            lambda: msm_ops.msm_bases(X, Y, Z, fp2))
+        tables[tag] = table
+        log(f"[kernels] bn254_msm_bases {tag} (built once per point "
+            f"table): {json.dumps(table)}")
+
+        def kern():
+            return msm_ops.msm_with_bases(bases, words, fp2)
+
+        got = kern()
+        again = kern()
+        t0 = time.perf_counter()
+        want = msm_ops.msm_device_plain(X, Y, Z, words, fp2)
+        torch.cuda.synchronize()
+        pms = (time.perf_counter() - t0) * 1e3
+        if not msm_ops.same_point(got, want, fp2):
+            raise AssertionError(f"{name} {tag}: kernel and plain version "
+                                 f"are different group elements")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} {tag}: two runs gave different "
+                                 f"Jacobian bits")
+        ms = cuda_ms(kern, 5)
+        by_fn = k5_device_ms(kern)
+        fns = {f.split("<")[0] for f in by_fn}
+        if fns != set(K5_FUNCTIONS) or any(("<Fp2>" in f) != fp2
+                                           for f in by_fn):
+            raise AssertionError(f"{name} {tag}: device functions {by_fn}")
+        reduced = [int(s) % msm_ops.bn254.R for s in scalars]
+        live = finite & np.array([s != 0 for s in reduced])
         nbits = max(1, max(int(s) % msm_ops.bn254.R
                            for s in scalars).bit_length())
         bits_np = msm_ops.scalars_to_bits(scalars, nbits)
-        bits = torch.from_numpy(bits_np.view(np.int32)).to(dev)
-
-        def kern():
-            return torch.stack(msm_ops.msm_device(X, Y, Z, bits, fp2))
-
-        def plain():
-            return torch.stack(msm_ops.msm_device_plain(X, Y, Z, bits, fp2))
-
-        got = kern()
-        t0 = time.perf_counter()
-        want = plain()
-        torch.cuda.synchronize()
-        pms = (time.perf_counter() - t0) * 1e3
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version")
-        ms = cuda_ms(kern, 3)
-        live = np.array([p is not None for p in pts])
-        prods = msm_products(bits_np, live) * (3 if fp2 else 1)
-        words = (2 if fp2 else 1) * 16
-        b_ms, b_by = bound_ms(4 * (3 * len(pts) * words + bits_np.size
-                                   + 3 * words), prods, SLOTS_PER_BN254_MUL)
-        rows[name] = dict(max_abs_err=0, ms=ms,
-                          plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                          shape=f"{len(pts)} points x {nbits} bits")
-        log(f"[kernels] {name} ok: {rows[name]}")
+        nbytes = 4 * (2 * len(pts) * words16 + words_np.size + 3 * words16)
+        m_ms, m_by = bound_ms(nbytes, bucket_products(
+            [s for s, ok in zip(reduced, finite) if ok]) * mult,
+            SLOTS_PER_BN254_MUL)
+        d_ms, _ = bound_ms(nbytes, msm_products(bits_np, live) * mult,
+                           SLOTS_PER_BN254_MUL)
+        shapes[tag] = dict(
+            kernel=name, max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=m_ms,
+            bound_by=m_by, bound_ms_double_and_add=d_ms,
+            device_ms_by_function=by_fn,
+            shape=f"{len(pts)} points ({int(live.sum())} finite with a "
+                  f"scalar not 0), {nbits}-bit scalars")
+        log(f"[kernels] {name} {tag} ok (same group element as the plain "
+            f"version, deterministic): {json.dumps(shapes[tag])}")
+        del X, Y, Z, words, bases
+    rows = {}
+    for name, timed in (("bn254_msm_g1", "k_query+h_query"),
+                        ("bn254_msm_g2", "b2_query")):
+        row = dict(shapes[timed])
+        row["at_shapes"] = {t: {k: v[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms",
+                                                  "bound_ms_double_and_add",
+                                                  "shape")}
+                            for t, v in shapes.items()
+                            if v["kernel"] == name}
+        row["ptxas"] = {f: v for f, v in ptxas.items()
+                        if f.split("<")[0] in K5_FUNCTIONS
+                        and ("<Fp2>" in f) == (name == "bn254_msm_g2")}
+        rows[name] = row
+    row = dict(tables["k_query+h_query"])
+    row["at_shapes"] = tables
+    row["ptxas"] = {f: v for f, v in ptxas.items()
+                    if f.split("<")[0] in K5_BASES_FUNCTIONS}
+    rows["bn254_msm_bases"] = row
     return rows
+
+
+def profile_wrap(dev, digest) -> dict:
+    """Where the wrap's wall goes: two `groth16_wrap.wrap_prove`s of the
+    main path's digest (keys cached).  The first ("first") drops the
+    key's kept tables of bases first, so it builds them as the first wrap
+    of a process does (the main path's: the points converted, four
+    `msm_bases`); the second ("kept") runs over the tables the first
+    kept, as every later wrap does.  Each with host timers (exclusive of
+    the timed calls inside them) around the witness, `is_satisfied`,
+    `_h_coeffs`, `wrap_tables` (the tables' lookup, or their build), the
+    point and scalar conversions, the MSM calls (launch, wait and copy
+    back), the host curve arithmetic (`g1_mul`, `g2_mul`, `g1_add`,
+    `g2_add`), CUDA events around each `msm_bases` and `msm_with_bases`
+    (K5's device time), and torch.profiler's device time per function."""
+    from ethrex_tpu_torch.prover import groth16_wrap
+
+    # the warm-up steps: the key's kept tables, with zero scalars
+    warm = [(bases, torch.zeros((bases.shape[1], 8), dtype=torch.int32,
+                                device=dev), bases.dim() == 5)
+            for bases in groth16_wrap.wrap_tables(dev).values()]
+    runs = {}
+    for label in ("first", "kept"):
+        if label == "first":
+            groth16_wrap._TABLES.clear()
+        runs[label] = _profile_one_wrap(dev, digest, label, warm)
+    return runs
+
+
+def _profile_one_wrap(dev, digest, label, warm) -> dict:
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from ethrex_tpu_torch.crypto import bn254
+    from ethrex_tpu_torch.crypto import groth16
+    from ethrex_tpu_torch.ops import bn254_msm as msm_ops
+    from ethrex_tpu_torch.prover import groth16_wrap
+
+    excl: dict = {}
+    stack: list = []
+    events: list = []
+
+    def timed(label, fn):
+        def inner(*a, **k):
+            t0 = time.perf_counter()
+            stack.append(0.0)
+            try:
+                return fn(*a, **k)
+            finally:
+                child = stack.pop()
+                dt = time.perf_counter() - t0
+                excl[label] = excl.get(label, 0.0) + dt - child
+                if stack:
+                    stack[-1] += dt
+        return inner
+
+    def device_timed(fn, kind):
+        def inner(*a, **k):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            events.append((s, e, kind(a[0])))
+            return out
+        return inner
+
+    patches = [
+        (groth16_wrap, "wrap_witness", "witness"),
+        (groth16.R1CS, "is_satisfied", "is_satisfied"),
+        (groth16, "_h_coeffs", "_h_coeffs"),
+        (groth16_wrap, "wrap_tables", "tables of bases (lookup or build)"),
+        (msm_ops, "points_to_device", "point conversion"),
+        (msm_ops, "g2_points_to_device", "point conversion"),
+        (msm_ops, "scalars_to_words", "scalar conversion"),
+        (msm_ops, "_run_msm", "MSM launch, wait and copy back"),
+        (bn254, "g1_mul", "host g1_mul/g2_mul/g1_add/g2_add"),
+        (bn254, "g2_mul", "host g1_mul/g2_mul/g1_add/g2_add"),
+        (bn254, "g1_add", "host g1_mul/g2_mul/g1_add/g2_add"),
+        (bn254, "g2_add", "host g1_mul/g2_mul/g1_add/g2_add"),
+    ]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    saved += [(msm_ops, "msm_with_bases", msm_ops.msm_with_bases),
+              (msm_ops, "msm_bases", msm_ops.msm_bases)]
+    msm_with_bases = msm_ops.msm_with_bases
+    for obj, attr, tag in patches:
+        setattr(obj, attr, timed(tag, getattr(obj, attr)))
+    msm_ops.msm_with_bases = device_timed(
+        msm_ops.msm_with_bases, lambda b: "g2" if b.dim() == 5 else "g1")
+    msm_ops.msm_bases = device_timed(msm_ops.msm_bases, lambda _x: "bases")
+    try:
+        torch.cuda.synchronize()
+        # the active step is the timed wrap; a warm-up step of the same
+        # MSMs first (the card loses a profile's first milliseconds)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for bases, words, fp2 in warm:
+                msm_with_bases(bases, words, fp2)
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            wrapped = groth16_wrap.wrap_prove(digest, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    if not groth16_wrap.wrap_verify(wrapped, digest):
+        raise AssertionError(f"profiled wrap ({label}): wrap_verify "
+                             f"rejected it")
+    kinds = ("g1", "g2", "bases")
+    k5_ms = {k: sum(s.elapsed_time(e) for s, e, g in events if g == k)
+             for k in kinds}
+    calls = {k: sum(1 for *_, g in events if g == k) for k in kinds}
+    by_fn: dict = {}
+    k5_launches = dict.fromkeys(kinds, 0)
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            nm = _short_kernel_name(e.name)
+            by_fn[nm] = round(by_fn.get(nm, 0.0)
+                              + e.time_range.elapsed_us() / 1e3, 4)
+            base = nm.split("<")[0]
+            if base in K5_BASES_FUNCTIONS:
+                k5_launches["bases"] += 1
+            elif base in K5_FUNCTIONS:
+                k5_launches["g2" if nm.endswith("<Fp2>") else "g1"] += 1
+    stray = [f for f in by_fn if f.split("<")[0] in ("k_double_and_add",
+                                                     "k_tree_level")]
+    per_call = {k: k5_launches[k] / calls[k] if calls[k] else 0
+                for k in kinds}
+    tables = 4 if label == "first" else 0
+    if calls != {"g1": 3, "g2": 1, "bases": tables} or stray or \
+            per_call != {"g1": len(K5_FUNCTIONS), "g2": len(K5_FUNCTIONS),
+                         "bases": len(K5_BASES_FUNCTIONS) if tables else 0}:
+        raise AssertionError(f"profiled wrap ({label}): K5 calls {calls}, "
+                             f"device functions {by_fn}")
+    parts = {k: round(v, 4) for k, v in excl.items()}
+    parts["other host"] = round(wall - sum(excl.values()), 4)
+    log(f"[wrap] {label}: one wrap_prove {wall:.3f} s, host s by part "
+        f"(exclusive): {json.dumps(parts)}; K5 device ms by CUDA events "
+        f"{json.dumps(k5_ms)} over {json.dumps(calls)} calls, device "
+        f"launches per call {json.dumps(per_call)}; device ms by function "
+        f"{json.dumps(by_fn)}")
+    return dict(wall_s=wall, parts_s=parts, k5_ms=k5_ms, by_fn=by_fn,
+                launches_per_call=per_call)
 
 
 # ---------------------------------------------------------------------------
@@ -1287,6 +1647,7 @@ def main_path(dev, rng, keys_future) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    check_wrap_msms("main path", launches, tables=4)
     # the quotient of every STARK goes through K6's combine kernels, one
     # launch per constraint group, and never through the (K, N) block
     from ethrex_tpu_torch.stark import air_codegen
@@ -1311,6 +1672,19 @@ def main_path(dev, rng, keys_future) -> dict:
     return dict(launches=launches, airs=airs, out=out, proofs=proofs,
                 main_s=main_s, peak_bytes=peak, params=params, stats=stats,
                 traces=traces)
+
+
+def check_wrap_msms(tag, launches, tables: int) -> None:
+    """A groth16 path's wrap runs three G1 MSMs and one G2 MSM, each one
+    K5 call, and builds `tables` tables of bases: the four point tables
+    of the wrap's key on the first wrap of the process, none after (they
+    are kept)."""
+    got = (launches["bn254_msm_g1"], launches["bn254_msm_g2"],
+           launches["bn254_msm_bases"])
+    if got != (3, 1, tables):
+        raise AssertionError(f"{tag}: K5 launched {got} times for G1, G2 "
+                             f"and the tables of bases ((3, 1, {tables}) "
+                             f"expected)")
 
 
 def check_inner(names, airs, full, params, tamper) -> None:
@@ -1440,10 +1814,12 @@ def two_proof_path(dev, rng) -> dict:
         f"{agg_stats['outer']['total_s']:.3f} s); peak device memory "
         f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in NOT_ON_GROTH16_PATHS]
+               if v <= 0 and k not in NOT_ON_GROTH16_PATHS
+               and k != "bn254_msm_bases"]
     if missing:
         raise AssertionError(f"kernels not launched on the two-proof path: "
                              f"{missing}")
+    check_wrap_msms("two-proof path", launches, tables=0)
     t0 = time.perf_counter()
     check_inner(["state", "binding"], [st_air, bd_air], [st_proof, bd_proof],
                 params, tamper=("state",))
@@ -1606,13 +1982,23 @@ def main() -> int:
     r1cs, layout, pk, _vk = groth16_wrap.wrap_keys()
     digest = [int(v) for v in result["out"]["aggregate"]["outer"][
         "pub_inputs"]]
+    wraps = profile_wrap(dev, digest)
     z = groth16_wrap.wrap_witness(digest, r1cs, layout)
     rows.update(check_msm(dev, pk, (r1cs, z), 1 + r1cs.num_pub))
+    # the main path's wrap was its process's first: it built the tables
+    wrap = wraps["first"]
+    for name, kind in (("bn254_msm_g1", "g1"), ("bn254_msm_g2", "g2"),
+                       ("bn254_msm_bases", "bases")):
+        rows[name]["launches_per_call"] = wrap["launches_per_call"][kind]
+        rows[name]["wrap_device_ms"] = {
+            k: w["k5_ms"][kind] for k, w in wraps.items()}
     small_cross_check(dev, rng)
     log(f"[end] smoke wall {time.perf_counter() - t_start:.1f} s")
 
     path_ms: dict = {}
-    for fn, ms in prof["per_kernel"].items():
+    # the STARKs' profile, and the first wrap's for K5
+    for fn, ms in list(prof["per_kernel"].items()) + list(
+            wrap["by_fn"].items()):
         key = _kernel_key(fn)
         if key:
             path_ms[key] = path_ms.get(key, 0.0) + ms
@@ -1639,6 +2025,9 @@ def main() -> int:
             **({"per_air": row["per_air"]} if "per_air" in row else {}),
             **({"at_state_shape": row["at_state_shape"]}
                if "at_state_shape" in row else {}),
+            **{k: row[k] for k in ("bound_ms_double_and_add", "ptxas",
+                                   "launches_per_call", "wrap_device_ms",
+                                   "device_ms_by_function") if k in row},
         })
     log(f"[earlier] each kernel's time before its current design "
         f"(PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3, "
@@ -1660,8 +2049,11 @@ DEVICE_FUNCTIONS = {
     "k_subtree": "poseidon2_merkle_subtree", "k_rows": "mod_matmul",
     "k_splitk": "mod_matmul", "k_splitk_finish": "mod_matmul",
     "k_fold": "fri_fold", "k_batch_inv": "batch_inv",
-    "k_double_and_add": "bn254_msm_g1", "k_tree_level": "bn254_msm_g1",
-    "k_store_result": "bn254_msm_g1", "k_deep": "deep_compose",
+    **{f: "bn254_msm_g1" for f in K5_FUNCTIONS},
+    **{f + "<Fp2>": "bn254_msm_g2" for f in K5_FUNCTIONS},
+    **{f: "bn254_msm_bases" for f in K5_BASES_FUNCTIONS},
+    **{f + "<Fp2>": "bn254_msm_bases" for f in K5_BASES_FUNCTIONS},
+    "k_deep": "deep_compose",
     "k_quotient": "quotient_combine",
     "k_batched_level": "merkle_batched_level",
     "k_table": "ext_poly_eval", "k_eval_partial": "ext_poly_eval",
@@ -1680,6 +2072,7 @@ REPLACES = {
     "batch_inv": "ethrex_tpu/ops/babybear.py:147",
     "bn254_msm_g1": "ethrex_tpu/ops/bn254_msm.py:308",
     "bn254_msm_g2": "ethrex_tpu/ops/bn254_msm.py:308",
+    "bn254_msm_bases": "ethrex_tpu/ops/bn254_msm.py:308",
     "deep_compose": "ethrex_tpu/stark/prover.py:565",
     "quotient_combine": "ethrex_tpu/stark/prover.py:540",
     "merkle_batched_level": "ethrex_tpu/ops/merkle.py:60",

@@ -282,10 +282,24 @@ def _h_coeffs(r1cs: R1CS, z: list[int], m: int) -> list[int]:
     return [h_c[i] * pow(g_inv, i, R) % R for i in range(m)][:m - 1]
 
 
+def msm_tables(pk: ProvingKey, device) -> dict:
+    """K5's tables of bases (`bn254_msm.point_bases`) for the key's four
+    MSMs on `device`: a_query, b1_query, k_query + h_query (G1) and
+    b2_query (G2).  They depend only on the key, so a prover builds them
+    once and passes them to every `prove` with it."""
+    return {"a": msm_ops.point_bases(pk.a_query, False, device),
+            "b1": msm_ops.point_bases(pk.b1_query, False, device),
+            "kh": msm_ops.point_bases(pk.k_query + pk.h_query, False,
+                                      device),
+            "b2": msm_ops.point_bases(pk.b2_query, True, device)}
+
+
 def prove(pk: ProvingKey, r1cs: R1CS, z: list[int],
-          rnd: bytes = b"", device="cuda") -> dict:
+          rnd: bytes = b"", device="cuda", tables: dict | None = None) -> dict:
     """Groth16 proof for a satisfied witness z = [1, pub..., priv...]; the
-    MSMs run on `device` ("cuda" unless the caller asks for the CPU)."""
+    MSMs run on `device` ("cuda" unless the caller asks for the CPU), over
+    the key's `tables` from `msm_tables` where the caller gives them."""
+    tables = tables or {}
     if not r1cs.is_satisfied(z):
         raise ValueError("witness does not satisfy the R1CS")
     m = _domain_size(r1cs)
@@ -308,15 +322,18 @@ def prove(pk: ProvingKey, r1cs: R1CS, z: list[int],
     s = fr(b"s")
 
     # A = alpha + sum z_i u_i(tau) + r*delta          (G1 MSM)
-    a_sum = msm_ops.msm(pk.a_query, list(z), device=device)
+    a_sum = msm_ops.msm(pk.a_query, list(z), device=device,
+                        bases=tables.get("a"))
     A = bn254.g1_add(bn254.g1_add(pk.alpha1, a_sum),
                      bn254.g1_mul(pk.delta1, r))
 
     # B (G2 MSM on the device too: Fp2 limbs) and its G1 mirror
-    b2_sum = msm_ops.g2_msm(pk.b2_query, list(z), device=device)
+    b2_sum = msm_ops.g2_msm(pk.b2_query, list(z), device=device,
+                            bases=tables.get("b2"))
     B2 = bn254.g2_add(bn254.g2_add(pk.beta2, b2_sum),
                       bn254.g2_mul(pk.delta2, s))
-    b1_sum = msm_ops.msm(pk.b1_query, list(z), device=device)
+    b1_sum = msm_ops.msm(pk.b1_query, list(z), device=device,
+                         bases=tables.get("b1"))
     B1 = bn254.g1_add(bn254.g1_add(pk.beta1, b1_sum),
                       bn254.g1_mul(pk.delta1, s))
 
@@ -324,7 +341,8 @@ def prove(pk: ProvingKey, r1cs: R1CS, z: list[int],
     n_pub = 1 + r1cs.num_pub
     h = _h_coeffs(r1cs, z, m)
     c_main = msm_ops.msm(pk.k_query + pk.h_query,
-                         list(z[n_pub:]) + h, device=device)
+                         list(z[n_pub:]) + h, device=device,
+                         bases=tables.get("kh"))
     C = bn254.g1_add(c_main, bn254.g1_mul(A, s))
     C = bn254.g1_add(C, bn254.g1_mul(B1, r))
     C = bn254.g1_add(C, bn254.g1_mul(pk.delta1, (R - r * s % R) % R))

@@ -48,6 +48,7 @@ KERNELS = {
     "batch_inv": "csrc/batch_inv.cu",
     "bn254_msm_g1": "csrc/bn254_msm.cu",
     "bn254_msm_g2": "csrc/bn254_msm.cu",
+    "bn254_msm_bases": "csrc/bn254_msm.cu",
     "deep_compose": "csrc/deep_compose.cu",
     "quotient_combine": "csrc/quotient_combine.cu",
     "merkle_batched_level": "csrc/poseidon2.cu",
@@ -64,6 +65,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib = None
+# source file name -> nvcc's output (ptxas -v with verbose) of the last
+# build by this process
+BUILD_LOG: dict = {}
 
 
 def reset_launches() -> None:
@@ -124,6 +128,7 @@ def build(verbose: bool = False) -> Path:
     for src, proc in procs:
         out, _ = proc.communicate()
         text = out.decode(errors="replace")
+        BUILD_LOG[src.name] = text
         if proc.returncode != 0:
             errors.append(f"{src.name}:\n{text}")
         elif verbose and text.strip():
@@ -155,7 +160,9 @@ _SIGNATURES = {
     "mod_matmul_splitk": [_P, _P, _P, _P, _L, _L, _I, _L, _L, _I, _I, _P],
     "fri_fold": [_P, _P, _P, _P, _P, _L, _P],
     "batch_inv": [_P, _P, _L, _I, _P],
-    "bn254_msm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "bn254_msm": [_P, _P, _P, _I, _I, _P, _P],
+    "bn254_msm_bases": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "bn254_msm_bytes": [_I, _I, _I],
     "deep_compose": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     "quotient_combine": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "p2_batched_level": [_P, _P, _P, _I, _L, _P],
@@ -166,6 +173,9 @@ _SIGNATURES = {
     "eval_poly_at": [_P, _L, _L, _I, _P, _P, _I, _P, _P],
     "to_mont_cols": [_P, _P, _L, _L, _L, _P],
 }
+
+# entries whose result is not an int error code
+_RESTYPES = {"bn254_msm_bytes": ctypes.c_longlong}
 
 
 def lib():
@@ -180,7 +190,7 @@ def lib():
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
     return _lib
 

@@ -6,23 +6,33 @@ Port of `ethrex_tpu/ops/bn254_msm.py`, the Groth16 wrap's prover hot loop
 and one G2 MSM).  Field elements travel as the reference's 16 limbs of 16
 bits in Montgomery form (R = 2^256), held in int32 tensors ((n, 16) for Fp,
 (n, 2, 16) for Fp2 = Fp[u]/(u^2 + 1)); points are Jacobian with infinity as
-Z = 0.
+Z = 0.  Scalars travel as (n, 8) int32 tensors of their 32-bit words, least
+significant first (`scalars_to_words`).
 
-MSM algorithm (the reference's): per scalar bit, LSB first, a masked
+Kernel K5 (`csrc/bn254_msm.cu`) is a signed-window bucket (Pippenger) sum
+with WINDOWS windows of WINDOW_BITS bits over a table of bases pre-shifted
+per window, Q_{w,i} = 2^(8 w) P_i in affine form: `msm_bases` builds the
+table (two launches), `msm_with_bases` runs the MSM over it (six
+launches), and `msm_device` does both.  `msm` and `g2_msm` take a table
+the caller keeps (`point_bases`): the wrap builds its key's four once
+(`prover/groth16_wrap.py wrap_tables`).
+
+On a CPU tensor each wrapper runs its plain version below, the
+reference's algorithm limb for limb (16-bit limbs in int64, CIOS product
+with split lo/hi-16 accumulators): per scalar bit, LSB first, a masked
 accumulation into a running point, then one doubling of the base,
 
     acc_i <- acc_i + (bit_ij ? P_i : O);   P_i <- 2 P_i
     result = tree_sum_i acc_i              (ceil(log2 n) point additions)
 
-On a CUDA tensor `msm_device` launches kernel K5 (`csrc/bn254_msm.cu`,
-8 x 32-bit Montgomery limbs, a thread per point, one launch per tree
-level).  On a CPU tensor it runs the plain version below, which mirrors the
-reference's numpy substrate limb for limb (16-bit limbs in int64, CIOS
-product with split lo/hi-16 accumulators).  Both give the reference's
-Jacobian result, so the affine points are equal.
+which gives the reference's Jacobian result.  The kernel sums in another
+order, so the Jacobian representatives differ; the group elements, and so
+the affine points `msm` and `g2_msm` return, are equal (`same_point`).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -34,6 +44,17 @@ from ..crypto import bn254
 L = 16          # limbs
 LB = 16         # bits per limb
 MASK = 0xFFFF
+
+
+def _cu_constant(name: str) -> int:
+    src = (kernels.CSRC / "bn254_msm.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# K5's windows, read from csrc/bn254_msm.cu: the table of bases holds
+# 2^(WINDOW_BITS w) P_i for w < WINDOWS
+WINDOWS = _cu_constant("kWindows")
+WINDOW_BITS = _cu_constant("kWindowBits")
 
 P_INT = bn254.P
 R_INT = (1 << (L * LB)) % P_INT          # Montgomery radix 2^256 mod p
@@ -269,13 +290,25 @@ def point_add(X1, Y1, Z1, X2, Y2, Z2, F=FpOps):
 # MSM over device tensors: K5 on the card, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
-def msm_device_plain(X, Y, Z, bit_rows, fp2: bool = False):
-    """Plain version of `msm_device` (the reference's `_np_msm`)."""
+def words_to_bits(words) -> torch.Tensor:
+    """(n, 8) int32 scalar words -> (n, nbits) int64 0/1, LSB first, with
+    nbits the longest scalar's bit length (at least 1)."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, device=w.device)
+    bits = ((w[:, :, None] >> shifts) & 1).flatten(1)
+    set_at = torch.nonzero(bits.any(dim=0))
+    nbits = int(set_at[-1, 0]) + 1 if len(set_at) else 1
+    return bits[:, :nbits]
+
+
+def msm_device_plain(X, Y, Z, words, fp2: bool = False):
+    """Plain version of `msm_device` (the reference's `_np_msm`: a
+    double-and-add per point over the scalar's bits, then a tree sum)."""
     F = Fp2Ops if fp2 else FpOps
     X, Y, Z = (v.to(torch.int64) for v in (X, Y, Z))
     aX, aY, aZ = (torch.zeros_like(X), torch.zeros_like(Y),
                   torch.zeros_like(Z))
-    bit_rows = bit_rows.to(torch.int64)
+    bit_rows = words_to_bits(words)
     for j in range(bit_rows.shape[1]):
         mask = bit_rows[:, j]
         mask = mask[:, None, None] if fp2 else mask[:, None]
@@ -293,30 +326,163 @@ def msm_device_plain(X, Y, Z, bit_rows, fp2: bool = False):
     return tuple(v[0].to(torch.int32) for v in (aX, aY, aZ))
 
 
-def msm_device(X, Y, Z, bit_rows, fp2: bool = False):
-    """sum_i bits_i * P_i in Jacobian Montgomery limbs.  X, Y, Z: (n, 16)
-    int32 limbs (or (n, 2, 16) with fp2), bit_rows: (n, bits) 0/1 LSB
-    first.  Returns (X, Y, Z) of shape (16,) or (2, 16).  Kernel K5 on a
-    CUDA tensor."""
+def finv(a):
+    """a^-1 (Montgomery in and out; 0 -> 0) by Fermat, a^(p - 2), as
+    csrc/bn254.cuh `inv`: the bits of p - 2 below the top, a squaring
+    each and a product for each set bit."""
+    x = a
+    e = P_INT - 2
+    for bit in reversed(range(e.bit_length() - 1)):
+        x = fmul(x, x)
+        if (e >> bit) & 1:
+            x = fmul(x, a)
+    return x
+
+
+def _to_words(limbs):
+    """(..., 16) 16-bit limbs (int64) -> (..., 8) int32 32-bit words."""
+    w = limbs[..., 0::2] | (limbs[..., 1::2] << LB)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _to_limbs16(words):
+    """(..., 8) int32 32-bit words -> (..., 16) int64 16-bit limbs."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & MASK, w >> LB], dim=-1).flatten(-2)
+
+
+def msm_bases_plain(X, Y, Z, fp2: bool = False):
+    """Plain version of `msm_bases`: the (WINDOWS, n, 2, 8) int32 table
+    ((WINDOWS, n, 2, 2, 8) with fp2) of 2^(WINDOW_BITS w) P_i in affine
+    Montgomery words, x then y; (0, 0) for the point at infinity."""
+    F = Fp2Ops if fp2 else FpOps
+    P = tuple(v.to(torch.int64) for v in (X, Y, Z))
+    jac = [P]
+    for _ in range(1, WINDOWS):
+        for _ in range(WINDOW_BITS):
+            P = point_double(*P, F)
+        jac.append(P)
+    JX, JY, JZ = (torch.stack([p[k] for p in jac]) for k in range(3))
+    if fp2:
+        norm = fadd(fmul(JZ[..., 0, :], JZ[..., 0, :]),
+                    fmul(JZ[..., 1, :], JZ[..., 1, :]))
+        t = finv(norm)[..., None, :]
+        c0 = fmul(JZ[..., :1, :], t)
+        c1 = fsub(torch.zeros_like(c0), fmul(JZ[..., 1:, :], t))
+        zi = torch.cat([c0, c1], dim=-2)
+    else:
+        zi = finv(JZ)
+    zi2 = F.mul(zi, zi)
+    ax, ay = F.mul(JX, zi2), F.mul(JY, F.mul(zi2, zi))
+    return _to_words(torch.stack([ax, ay], dim=2))
+
+
+def msm_bases(X, Y, Z, fp2: bool = False):
+    """K5's table of bases for the points (X, Y, Z) (see
+    `msm_bases_plain`).  Two launches of K5's `bn254_msm_bases` on a CUDA
+    tensor."""
     if X.device.type != "cuda":
-        return msm_device_plain(X, Y, Z, bit_rows, fp2)
+        return msm_bases_plain(X, Y, Z, fp2)
     limb_shape = (2, L) if fp2 else (L,)
     n = X.shape[0]
-    for t, name in ((X, "X"), (Y, "Y"), (Z, "Z"), (bit_rows, "bit_rows")):
+    for t, name in ((X, "X"), (Y, "Y"), (Z, "Z")):
+        kernels.require_int32_cuda(t, f"bn254 msm bases {name}")
+    if any(tuple(t.shape) != (n,) + limb_shape for t in (X, Y, Z)):
+        raise ValueError(f"msm_bases: X, Y, Z must be (n,) + {limb_shape}")
+    X, Y, Z = (t.contiguous() for t in (X, Y, Z))
+    fp2_flag = 1 if fp2 else 0
+    lib = kernels.lib()
+    jac = torch.empty(lib.bn254_msm_bytes(n, fp2_flag, 2), dtype=torch.uint8,
+                      device=X.device)
+    bases = torch.empty((WINDOWS, n, 2) + ((2, 8) if fp2 else (8,)),
+                        dtype=torch.int32, device=X.device)
+    if bases.numel() * 4 != lib.bn254_msm_bytes(n, fp2_flag, 1):
+        raise RuntimeError("msm_bases: table size differs from the kernel's")
+    kernels.call("bn254_msm_bases", X.device, kernels.ptr(X), kernels.ptr(Y),
+                 kernels.ptr(Z), kernels.ptr(jac), n, fp2_flag,
+                 kernels.ptr(bases))
+    kernels.count("bn254_msm_bases")
+    return bases
+
+
+def msm_with_bases_plain(bases, words, fp2: bool = False):
+    """Plain version of `msm_with_bases`: the double-and-add over the
+    table's window 0 (the points themselves, affine)."""
+    X, Y = _to_limbs16(bases[0, :, 0]), _to_limbs16(bases[0, :, 1])
+    one = torch.from_numpy(to_mont_host(1).astype(np.int64)).to(X.device)
+    Z = torch.zeros_like(X)
+    live = ((X != 0).flatten(1).any(1) | (Y != 0).flatten(1).any(1))
+    if fp2:
+        Z[live, 0] = one
+    else:
+        Z[live] = one
+    return msm_device_plain(X, Y, Z, words, fp2)
+
+
+def msm_with_bases(bases, words, fp2: bool = False):
+    """sum_i s_i * P_i in Jacobian Montgomery limbs ((16,) or (2, 16)
+    each of X, Y, Z) over a table from `msm_bases` of the points P_i;
+    words: (n, 8) int32, the 32-bit words of each scalar s_i < 2^255,
+    least significant first.  Six launches of kernel K5 on a CUDA
+    tensor."""
+    if bases.device.type != "cuda":
+        return msm_with_bases_plain(bases, words, fp2)
+    n = words.shape[0]
+    table_shape = (WINDOWS, n, 2) + ((2, 8) if fp2 else (8,))
+    for t, name in ((bases, "bases"), (words, "words")):
         kernels.require_int32_cuda(t, f"bn254 msm {name}")
-    if any(tuple(t.shape) != (n,) + limb_shape for t in (X, Y, Z)) \
-            or bit_rows.dim() != 2 or bit_rows.shape[0] != n:
-        raise ValueError("msm_device: X, Y, Z must be (n,) + "
-                         f"{limb_shape} and bit_rows (n, bits)")
-    X, Y, Z, bit_rows = (t.contiguous() for t in (X, Y, Z, bit_rows))
-    words = 16 if fp2 else 8
-    acc = torch.empty((3, n, words), dtype=torch.int32, device=X.device)
-    out = torch.empty((3,) + limb_shape, dtype=torch.int32, device=X.device)
-    kernels.call("bn254_msm", X.device, kernels.ptr(X), kernels.ptr(Y),
-                 kernels.ptr(Z), kernels.ptr(bit_rows), kernels.ptr(acc), n,
-                 bit_rows.shape[1], 1 if fp2 else 0, kernels.ptr(out))
+    if tuple(bases.shape) != table_shape or tuple(words.shape) != (n, 8):
+        raise ValueError(f"msm_with_bases: bases must be {table_shape} and "
+                         "words (n, 8)")
+    bases, words = bases.contiguous(), words.contiguous()
+    fp2_flag = 1 if fp2 else 0
+    scratch = torch.empty(kernels.lib().bn254_msm_bytes(n, fp2_flag, 0),
+                          dtype=torch.uint8, device=words.device)
+    limb_shape = (2, L) if fp2 else (L,)
+    out = torch.zeros((3,) + limb_shape, dtype=torch.int32,
+                      device=words.device)
+    kernels.call("bn254_msm", words.device, kernels.ptr(bases),
+                 kernels.ptr(words), kernels.ptr(scratch), n, fp2_flag,
+                 kernels.ptr(out))
     kernels.count("bn254_msm_g2" if fp2 else "bn254_msm_g1")
     return out[0], out[1], out[2]
+
+
+def msm_device(X, Y, Z, words, fp2: bool = False):
+    """sum_i s_i * P_i in Jacobian Montgomery limbs.  X, Y, Z: (n, 16)
+    int32 limbs (or (n, 2, 16) with fp2), words: (n, 8) int32, the 32-bit
+    words of each scalar s_i < 2^255, least significant first.  Returns
+    (X, Y, Z) of shape (16,) or (2, 16).  On a CUDA tensor kernel K5:
+    the table of bases, then the MSM over it."""
+    if X.device.type != "cuda":
+        return msm_device_plain(X, Y, Z, words, fp2)
+    return msm_with_bases(msm_bases(X, Y, Z, fp2), words, fp2)
+
+
+def same_point(a, b, fp2: bool = False) -> bool:
+    """Whether two Jacobian results (X, Y, Z) in Montgomery limbs (tensors
+    or arrays of (16,) or (2, 16)) are one group element: both at
+    infinity, or X1 Z2^2 = X2 Z1^2 and Y1 Z2^3 = Y2 Z1^3 mod p.  The
+    relations are homogeneous, so they hold on the Montgomery forms."""
+    def elem(v):
+        v = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+        v = v.astype(np.int64) & MASK
+        if fp2:
+            return bn254.Fp2(_from_limbs(v[0]), _from_limbs(v[1]))
+        return _from_limbs(v) % P_INT
+
+    (x1, y1, z1), (x2, y2, z2) = ([elem(v) for v in p] for p in (a, b))
+    if fp2:
+        inf1, inf2 = z1.is_zero(), z2.is_zero()
+        if inf1 or inf2:
+            return inf1 and inf2
+        z1s, z2s = z1 * z1, z2 * z2
+        return x1 * z2s == x2 * z1s and y1 * z2s * z2 == y2 * z1s * z1
+    if z1 == 0 or z2 == 0:
+        return z1 == z2
+    z1s, z2s = z1 * z1 % P_INT, z2 * z2 % P_INT
+    return (x1 * z2s - x2 * z1s) % P_INT == 0 and \
+        (y1 * z2s * z2 - y2 * z1s * z1) % P_INT == 0
 
 
 # ---------------------------------------------------------------------------
@@ -372,26 +538,46 @@ def scalars_to_bits(scalars: list[int], bits: int = 256) -> np.ndarray:
         np.uint32)
 
 
-def _run_msm(X, Y, Z, scalars, fp2: bool):
-    max_s = max((int(s) % bn254.R for s in scalars), default=0)
-    bits = max(1, max_s.bit_length())
-    bit_rows = torch.from_numpy(
-        scalars_to_bits(scalars, bits).view(np.int32)).to(X.device)
-    out = msm_device(X, Y, Z, bit_rows, fp2)
+def scalars_to_words(scalars: list[int]) -> np.ndarray:
+    """(n, 8) uint32: the 32-bit words of each scalar mod r, least
+    significant first."""
+    raw = b"".join((int(s) % bn254.R).to_bytes(32, "little")
+                   for s in scalars)
+    return np.frombuffer(raw, dtype="<u4").reshape(len(scalars), 8).astype(
+        np.uint32)
+
+
+def point_bases(points: list, fp2: bool, device):
+    """K5's table of bases (`msm_bases`) for a host point list on
+    `device`, for `msm` and `g2_msm` to take; the caller keeps it as long
+    as the points (a proving key's) stay fixed."""
+    conv = g2_points_to_device if fp2 else points_to_device
+    return msm_bases(*conv(points, device), fp2)
+
+
+def _run_msm(points, scalars, fp2: bool, device, bases):
+    words = torch.from_numpy(scalars_to_words(scalars).view(np.int32)).to(
+        device)
+    if bases is not None:
+        out = msm_with_bases(bases, words, fp2)
+    else:
+        conv = g2_points_to_device if fp2 else points_to_device
+        out = msm_device(*conv(points, device), words, fp2)
     return tuple(v.cpu().numpy().view(np.uint32) for v in out)
 
 
-def msm(points: list, scalars: list[int], device="cuda") -> tuple | None:
+def msm(points: list, scalars: list[int], device="cuda",
+        bases=None) -> tuple | None:
     """sum_i scalars[i] * points[i] over G1; returns affine (x, y) or None
     (infinity).  Points are host affine ints; the MSM runs on `device`
-    ("cuda" unless the caller asks for the CPU)."""
+    ("cuda" unless the caller asks for the CPU), over `bases`, the
+    points' table from `point_bases`, where the caller gives one."""
     if len(points) != len(scalars):
         raise ValueError("points/scalars length mismatch")
     if not points:
         return None
-    device = require_cuda(device)
-    X, Y, Z = points_to_device(points, device)
-    aX, aY, aZ = _run_msm(X, Y, Z, scalars, fp2=False)
+    aX, aY, aZ = _run_msm(points, scalars, False, require_cuda(device),
+                          bases)
     z = from_mont_host(aZ)
     if z == 0:
         return None
@@ -402,15 +588,16 @@ def msm(points: list, scalars: list[int], device="cuda") -> tuple | None:
     return (x * zinv2 % P_INT, y * zinv2 * zinv % P_INT)
 
 
-def g2_msm(points: list, scalars: list[int], device="cuda") -> tuple | None:
-    """sum_i scalars[i] * points[i] over G2; affine (Fp2, Fp2) or None."""
+def g2_msm(points: list, scalars: list[int], device="cuda",
+           bases=None) -> tuple | None:
+    """sum_i scalars[i] * points[i] over G2; affine (Fp2, Fp2) or None.
+    `device` and `bases` as for `msm`."""
     if len(points) != len(scalars):
         raise ValueError("points/scalars length mismatch")
     if not points:
         return None
-    device = require_cuda(device)
-    X, Y, Z = g2_points_to_device(points, device)
-    aX, aY, aZ = _run_msm(X, Y, Z, scalars, fp2=True)
+    aX, aY, aZ = _run_msm(points, scalars, True, require_cuda(device),
+                          bases)
     z = bn254.Fp2(from_mont_host(aZ[0]), from_mont_host(aZ[1]))
     if z.c0 == 0 and z.c1 == 0:
         return None

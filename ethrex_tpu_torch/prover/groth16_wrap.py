@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import hashlib
 
+from .. import require_cuda
 from ..crypto import groth16
 from ..crypto.groth16 import R, R1CS
 
@@ -158,14 +159,34 @@ def use_keys(keys, seed: bytes = DEFAULT_SEED) -> None:
     """Install (r1cs, layout, pk, vk) that `wrap_keys(seed)` built in
     another process (the setup is deterministic in the seed)."""
     _CACHE[seed] = keys
+    for slot in [k for k in _TABLES if k[0] == seed]:
+        del _TABLES[slot]
+
+
+_TABLES: dict = {}
+
+
+def wrap_tables(device, seed: bytes = DEFAULT_SEED) -> dict | None:
+    """The wrap key's tables of bases for K5 (`groth16.msm_tables`) on a
+    CUDA `device`, built at the key's first proof there and kept beside
+    the key; None on the CPU, where the MSMs run their plain version."""
+    dev = require_cuda(device)
+    if dev.type != "cuda":
+        return None
+    slot = (seed, str(dev))
+    if slot not in _TABLES:
+        _TABLES[slot] = groth16.msm_tables(wrap_keys(seed)[2], dev)
+    return _TABLES[slot]
 
 
 def wrap_prove(limbs: list[int], rnd: bytes = b"", device="cuda") -> dict:
     """Digest limbs -> {"hash": h, "proof": groth16 proof}; the MSMs run on
-    `device` ("cuda" unless the caller asks for the CPU)."""
+    `device` ("cuda" unless the caller asks for the CPU), over the key's
+    kept tables of bases (`wrap_tables`)."""
     r1cs, layout, pk, _vk = wrap_keys()
     z = wrap_witness(limbs, r1cs, layout)
-    proof = groth16.prove(pk, r1cs, z, rnd=rnd, device=device)
+    proof = groth16.prove(pk, r1cs, z, rnd=rnd, device=device,
+                          tables=wrap_tables(device))
     return {"hash": z[1], "proof": proof}
 
 

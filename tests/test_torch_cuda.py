@@ -6,7 +6,11 @@ of the NTT's pass plan and the Merkle subtree plan (chip_smoke.py covers
 the full-size ones); a small aggregate proof, a small VM-mode batch's stage proofs and
 the fused prove step made on the card against the same made on the CPU.
 
-Bar: bit-equality (torch.equal); all arithmetic is exact.  Every test
+Bar: bit-equality (torch.equal); all arithmetic is exact.  K5 (the BN254
+MSM) sums in another order than its plain double-and-add, so its Jacobian
+result is held equal to the plain one as a group element
+(`bn254_msm.same_point`), and its affine result equal to the host sum.
+Every test
 skips, saying so, when torch.cuda.is_available() is False; a kernel that
 fails to build on a CUDA host fails its test.  This file imports neither
 JAX nor the JAX package, so on a machine without JAX it runs as
@@ -289,31 +293,61 @@ def _scalars(rng, n, nbytes=40):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("n", [1, 2, 37])
+def _words(sc, dev):
+    return torch.from_numpy(msm_ops.scalars_to_words(sc).view(np.int32)).to(
+        dev)
+
+
+@pytest.mark.parametrize("n", [1, 2, 37, 2897])
 def test_msm_g1_kernel_equals_plain(dev, n):
+    # the kernel sums in another order than the plain double-and-add, so
+    # the two Jacobian results are held equal as group elements
     rng = np.random.default_rng(n)
     pts = _g1_points(rng, n)
     sc = _scalars(rng, n)
     X, Y, Z = msm_ops.points_to_device(pts, dev)
-    bits = torch.from_numpy(msm_ops.scalars_to_bits(sc, 254).view(
-        np.int32)).to(dev)
-    got = msm_ops.msm_device(X, Y, Z, bits)
-    want = msm_ops.msm_device_plain(X, Y, Z, bits)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    words = _words(sc, dev)
+    got = msm_ops.msm_device(X, Y, Z, words)
+    want = msm_ops.msm_device_plain(X, Y, Z, words)
+    assert msm_ops.same_point(got, want)
     host = None
     for pt, s in zip(pts, sc):
         host = bn254.g1_add(host, bn254.g1_mul(pt, s))
     assert msm_ops.msm(pts, sc, device=dev) == host
 
 
-def test_msm_edge_cases_on_the_card(dev):
+def _edge_cases():
     g = bn254.G1
-    assert msm_ops.msm([g, bn254.g1_mul(g, 7)], [0, 0], device=dev) is None
-    assert msm_ops.msm([g, g], [5, bn254.R - 5], device=dev) is None
-    assert msm_ops.msm([None, g], [3, 2], device=dev) == bn254.g1_mul(g, 2)
-    assert msm_ops.msm([g, g, g], [3, 3, 1], device=dev) == \
-        bn254.g1_mul(g, 7)
+    neg_g = (g[0], bn254.P - g[1])
+    r = bn254.R
+    top = (1 << 253) | (0xFF << 240)       # window 30 carries into 31
+    many = [bn254.g1_mul(g, k) for k in range(1, 11)]
+    return {
+        "zeros": ([g, bn254.g1_mul(g, 7)], [0, 0]),
+        "r_minus_1": ([g, bn254.g1_mul(g, 3)], [r - 1, r - 1]),
+        "top_carry": ([g, g, many[2]], [top, r - 2, top - 1]),
+        "duplicates": ([g] * 5 + [many[4]] * 4, [3, 3, 3, 5, 3, 3, 3, 3, 7]),
+        "p_and_minus_p": ([g, many[1], neg_g], [5, 9, 5]),
+        "cancel": ([g, g], [5, r - 5]),
+        "none": ([None, g, None], [3, 2, 9]),
+        "all_none": ([None, None], [3, 2]),
+        "n_above_2c": ([many[k % 10] for k in range(300)],
+                       [(k * 7919) % 256 for k in range(300)]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_edge_cases()))
+def test_msm_edge_cases_on_the_card(dev, case):
+    pts, sc = _edge_cases()[case]
+    X, Y, Z = msm_ops.points_to_device(pts, dev)
+    words = _words(sc, dev)
+    assert msm_ops.same_point(msm_ops.msm_device(X, Y, Z, words),
+                              msm_ops.msm_device_plain(X, Y, Z, words))
+    host = None
+    for pt, s in zip(pts, sc):
+        if pt is not None:
+            host = bn254.g1_add(host, bn254.g1_mul(pt, s % bn254.R))
+    assert msm_ops.msm(pts, sc, device=dev) == host
 
 
 def test_msm_g2_kernel_equals_plain(dev):
@@ -322,17 +356,51 @@ def test_msm_g2_kernel_equals_plain(dev):
            for _ in range(5)] + [None]
     sc = _scalars(rng, 6)
     X, Y, Z = msm_ops.g2_points_to_device(pts, dev)
-    bits = torch.from_numpy(msm_ops.scalars_to_bits(sc, 254).view(
-        np.int32)).to(dev)
-    got = msm_ops.msm_device(X, Y, Z, bits, fp2=True)
-    want = msm_ops.msm_device_plain(X, Y, Z, bits, fp2=True)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    words = _words(sc, dev)
+    got = msm_ops.msm_device(X, Y, Z, words, fp2=True)
+    want = msm_ops.msm_device_plain(X, Y, Z, words, fp2=True)
+    assert msm_ops.same_point(got, want, fp2=True)
     host = None
     for pt, s in zip(pts, sc):
         host = bn254.g2_add(host, bn254.g2_mul(pt, s) if pt else None)
     got_aff = msm_ops.g2_msm(pts, sc, device=dev)
     assert got_aff[0] == host[0] and got_aff[1] == host[1]
+    # P and -P in one bucket cancel on G2 too
+    q = pts[0]
+    assert msm_ops.g2_msm([q, (q[0], -q[1])], [3, 3], device=dev) is None
+
+
+@pytest.mark.parametrize("n,fp2", [(1, False), (37, False), (300, False),
+                                   (6, True)])
+def test_msm_bases_kernel_equals_plain(dev, n, fp2):
+    # the table of bases is affine, so kernel and plain are bit-equal
+    rng = np.random.default_rng(40 + n)
+    if fp2:
+        pts = [bn254.g2_mul(bn254.G2, int(rng.integers(1, 1 << 20)))
+               for _ in range(n - 1)] + [None]
+        X, Y, Z = msm_ops.g2_points_to_device(pts, dev)
+    else:
+        pts = _g1_points(rng, n)
+        pts[n // 2] = None
+        X, Y, Z = msm_ops.points_to_device(pts, dev)
+    assert torch.equal(msm_ops.msm_bases(X, Y, Z, fp2),
+                       msm_ops.msm_bases_plain(X, Y, Z, fp2))
+
+
+def test_msm_over_a_kept_table_builds_it_once(dev):
+    rng = np.random.default_rng(41)
+    pts = _g1_points(rng, 50)
+    sc1, sc2 = _scalars(rng, 50), _scalars(rng, 50)
+    kernels.reset_launches()
+    bases = msm_ops.point_bases(pts, False, dev)
+    first = msm_ops.msm(pts, sc1, device=dev, bases=bases)
+    second = msm_ops.msm(pts, sc2, device=dev, bases=bases)
+    assert first != second
+    assert kernels.LAUNCHES["bn254_msm_bases"] == 1
+    assert kernels.LAUNCHES["bn254_msm_g1"] == 2
+    # without a table each call builds its own
+    assert msm_ops.msm(pts, sc1, device=dev) == first
+    assert kernels.LAUNCHES["bn254_msm_bases"] == 2
 
 
 def test_small_aggregate_on_the_card_equals_cpu(dev):

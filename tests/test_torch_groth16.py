@@ -78,6 +78,34 @@ def test_proof_equals_reference_and_reference_verifies_it(fixed_entropy):
     assert not groth16.verify(_vk, bad, [35])
 
 
+def test_proof_over_kept_tables_equals_reference(fixed_entropy):
+    """The MSMs over the key's tables of bases (`msm_tables`, their plain
+    versions on the CPU) give the reference's proof."""
+    r1cs, jr1cs = _mult_r1cs(groth16), _mult_r1cs(jgroth16)
+    pk, vk = groth16.setup(r1cs, seed=b"test-setup-1")
+    jpk, _jvk = jgroth16.setup(jr1cs, seed=b"test-setup-1")
+    tables = groth16.msm_tables(pk, "cpu")
+    assert set(tables) == {"a", "b1", "kh", "b2"}
+    z = [1, 35, 5, 7]
+    proof = groth16.prove(pk, r1cs, z, rnd=b"t2", device="cpu",
+                          tables=tables)
+    jproof = jgroth16.prove(jpk, jr1cs, z, rnd=b"t2")
+    ours = convert.groth16_proof(proof, jbn254.Fp2)
+    assert convert.groth16_proof(ours) == convert.groth16_proof(jproof)
+    assert groth16.verify(vk, proof, [35])
+
+
+def test_wrap_tables_kept_per_key_and_none_on_cpu(monkeypatch):
+    """Installing a seed's keys drops that seed's kept tables only."""
+    monkeypatch.setattr(wrap, "_CACHE", {})
+    monkeypatch.setattr(wrap, "_TABLES", {(wrap.DEFAULT_SEED, "cuda:0"): {},
+                                          (b"other", "cuda:0"): {}})
+    assert wrap.wrap_tables("cpu") is None
+    wrap.use_keys("keys")
+    assert wrap._CACHE == {wrap.DEFAULT_SEED: "keys"}
+    assert list(wrap._TABLES) == [(b"other", "cuda:0")]
+
+
 def test_unsatisfied_witness_refused():
     r1cs = _mult_r1cs(groth16)
     pk, _vk = groth16.setup(r1cs, seed=b"test-setup-1")
