@@ -26,8 +26,9 @@ Phases:
      LDE (the plain version of the three largest on the first and the
      last 2^20 or 2^22 points), and its constraint block at 2^16 points;
      K7 on
-     the outer divisor stack; K8, K9 and K11 at the state and the outer
-     proof's shapes; K10 on the fused step's FRI layer trees; the ext
+     the outer divisor stack, and its divisor entry on the outer proof's
+     domain (2^25 points, 11 constants); K8, K9 and K11 at the state and
+     the outer proof's shapes; K10 on the fused step's FRI layer trees; the ext
      inverses on 2^20 elements, eval_poly_at on 64 x 2^16 and
      to_mont_cols on the TransferAir trace (2^20 x 278);
   4. the main path, with the launch counts zeroed just before and read
@@ -49,11 +50,13 @@ Phases:
      rejects a tampered public input of four; `verify_aggregated` accepts
      the aggregate and rejects a tampered inner FRI value; `wrap_verify`
      accepts the wrap and rejects a wrong digest; then every STARK of the
-     main path is proved again from its trace under torch.profiler: per
-     phase the wall, the device time by kernel and the device's idle
-     share, and per kernel its device time over the path's STARKs; K3
-     and K6 by phase, and each STARK's peak device memory (the running
-     peak at each phase's end shows the phase that sets it);
+     main path is proved again from its trace under torch.profiler, its
+     cached tables dropped first so that `tables` runs its device work
+     again: per phase the wall, the device time by kernel and the
+     device's idle share, and per kernel its device time over the path's
+     STARKs; K3 and K6 by phase, K7 and PyTorch's own kernels in
+     `tables`, and each STARK's peak device memory (the running peak at
+     each phase's end shows the phase that sets it);
   7. the earlier slice's path, its counts zeroed just before and read
      just after: a state proof (cut to 126 keys and 127 writes: n = 2^16
      x 115) and a 512-limb binding proof (64 chunks), then
@@ -108,6 +111,9 @@ SLOTS_PER_MONT = 5
 # (ethrex_tpu_torch/tools/int_mul_rate.py, `sass_multiplies_per_raw`),
 # priced as SLOTS_PER_MONT prices them (two slots a wide form)
 SLOTS_PER_RAW = 2 * 1.125 + 0.0625
+# IMAD slots per reduction of a lazy sum (bb::redc): a Montgomery product
+# without its wide multiply, IMAD (lo*NP) and IMAD.HI.U32
+SLOTS_PER_REDC = SLOTS_PER_MONT - 2
 # IMAD slots per BN254 Montgomery product (csrc/bn254_msm.cu `mul`): 8 x 8
 # wide a_i*b_j and 8 x 8 wide m*p_j (IMAD.WIDE.U32, 2 slots each) plus 8
 # low products m = t0 * NP (IMAD, 1 slot); an Fp2 product is 3 of them
@@ -126,7 +132,8 @@ K5_BASES_FUNCTIONS = ("k_shift", "k_affine")
 # (PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3 at 700 W):
 # not measured by this run, so logged on a line of its own.
 # K1 the state LDE, K2 the state leaves and one tree level (2^22 -> 2^21),
-# K8, K9, K11 the outer shape, K10 the fused step's layers; K3 the state
+# K7 the outer divisor stack and K8, K9, K11 the outer shape (K7 and K8
+# by PR 5's smoke), K10 the fused step's layers; K3 the state
 # deep phase's two m = 4 calls, and the fused K6 TransferAir's block
 # (38.613 ms) plus K3's read of it (31.566 ms), both by the kernels
 # before their current design; K5 the double-and-add kernel that the
@@ -134,8 +141,8 @@ K5_BASES_FUNCTIONS = ("k_shift", "k_affine")
 EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
               "poseidon2_compress_level": 1.065, "mod_matmul": 4.062,
               "fri_fold": 0.073, "air_combine": 70.179,
-              "batch_inv": 2.920, "bn254_msm_g1": 12.308,
-              "bn254_msm_g2": 40.577, "deep_compose": 6.848,
+              "batch_inv": 2.830, "bn254_msm_g1": 12.308,
+              "bn254_msm_g2": 40.577, "deep_compose": 5.604,
               "quotient_combine": 1.567, "merkle_batched_level": 2.909,
               "ext_poly_eval": 4.335}
 # kernels the groth16 paths need not launch: the reference's test-only
@@ -648,30 +655,113 @@ def check_air_kernels(dev, rng) -> dict:
     return out
 
 
+def kernel_ptxas(src: str, functions) -> dict:
+    """Registers and spill bytes of each device function named in
+    `functions` (a template instance keeps its argument: k_deep<2>, or
+    K5's <Fp2>), from the ptxas report (-Xptxas -v) of this run's build
+    of csrc/`src`: {"k_bucket_acc<Fp2>": {"registers": r,
+    "spill_stores": s, "spill_loads": l, "callee_spill_stores": cs,
+    "callee_spill_loads": cl}, ...}, the callee figures summed over the
+    functions it calls that are not inlined."""
+    import re
+
+    from ethrex_tpu_torch import kernels
+
+    out: dict = {}
+    name = mangled = None
+    own = False
+    for line in kernels.BUILD_LOG.get(src, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = next((f for f in functions if f in mangled), None)
+            arg = re.search(r"ILi(\d+)E", mangled)
+            name = None if base is None else base + (
+                "<Fp2>" if "Fp2" in mangled else
+                f"<{arg.group(1)}>" if arg else "")
+            if name:
+                out[name] = dict(registers=None, spill_stores=0,
+                                 spill_loads=0, callee_spill_stores=0,
+                                 callee_spill_loads=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            own = m.group(1) == mangled
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            pre = "" if own else "callee_"
+            out[name][pre + "spill_stores"] += int(m.group(1))
+            out[name][pre + "spill_loads"] += int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def check_batch_inv(dev, rng) -> dict:
-    """K7 on the outer proof's divisor stack: B + N + nb N elements for
-    N = 2^25 and the FriVerifyAir's 10 boundary rows."""
+    """K7 on the outer proof's divisor stack (B + N + nb N elements for N
+    = 2^25 and the FriVerifyAir's 10 boundary rows), and its divisor
+    entry as the prover calls it there (the B coset-class values, then
+    the nb + 1 constants over the 2^25 domain points)."""
     from ethrex_tpu_torch.ops import babybear as bb
 
-    N = 1 << 25
-    n = 8 + N + 10 * N
+    B, N, nb = 8, 1 << 25, 10
+    n = B + N + nb * N
     a = field_dev(rng, (n,), dev)
     a[a == 0] = bb.MONT_ONE
     err, ms, pms = compare("batch_inv", lambda: bb.batch_mont_inv(a),
                            lambda: bb.batch_mont_inv_plain(a), plain_reps=1)
-    chunks = -(-n // bb._INV_CHUNK)
-    b_ms, b_by = bound_ms(4 * 2 * n, 3 * n + 45 * chunks)
+    # one read and one write a word; 3 products an element (the running
+    # product and the two of the unwinding)
+    b_ms, b_by = bound_ms(4 * 2 * n, 3 * n)
     del a
     torch.cuda.empty_cache()
-    row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-               bound_by=b_by, shape=f"outer divisor stack ({n},)")
-    log(f"[kernels] batch_inv ok: {row}")
-    return row
+    ptx = kernel_ptxas("batch_inv.cu", ("k_batch_inv", "k_divisor_inv"))
+    rows = {"batch_inv": dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"outer divisor stack ({n},)", ptxas=ptx)}
+    pts = field_dev(rng, (N,), dev)
+    head = [int(v) for v in rng.integers(1, bb.P, B)]
+    consts = [int(v) for v in rng.integers(1, bb.P, nb + 1)]
+    err, ms, pms = compare(
+        "divisor_inv", lambda: bb.divisor_stack_inv(pts, head, consts),
+        lambda: bb.divisor_stack_inv_plain(pts, head, consts), plain_reps=1)
+    # reads the N points once and writes the (nb + 1) N inverses; the
+    # unfused bound is K7's over the same stack (read and written)
+    b_ms, b_by = bound_ms(4 * (N + n), 3 * n)
+    rows["divisor_inv"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+        bound_ms_unfused=bound_ms(4 * 2 * n, 3 * n)[0],
+        shape=f"outer divisor stack ({n},) from {N} points and {nb + 1} "
+              f"constants", ptxas=ptx)
+    del pts
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        log(f"[kernels] {name} ok: {row}")
+    return rows
 
 
 # the shapes K8, K9 and K11 see on the path: (name, w, n, boundaries) of
 # the state proof and of the outer proof (blowup 8)
 GLUE_SHAPES = (("state", 115, 1 << 19, 24), ("outer", 90, 1 << 22, 10))
+
+
+def deep_bound(N: int, B: int, openings: int) -> tuple[float, str]:
+    """K8's bound at N points, B quotient chunks and one or two openings,
+    as the least work of any design: per point it reads x, the openings'
+    sums (4 words each) and the 4 B chunk words and writes 4 words; the
+    chunk and quotient ext products as raw products summed lazily (16
+    each) with one reduction a coordinate, and in Montgomery products a
+    conjugate and a norm (11) and 1/(x - z) (4) an opening, and 3 a norm
+    for its inverse by Montgomery's trick."""
+    raw = 16 * (B + openings)
+    mont = (11 + 4 + 3) * openings
+    slots = raw * SLOTS_PER_RAW + mont * SLOTS_PER_MONT + 4 * SLOTS_PER_REDC
+    return bound_ms(4 * N * (1 + 4 * openings + 4 * B + 4), N * slots, 1)
 
 
 def check_ext_glue(dev, rng) -> dict:
@@ -697,15 +787,21 @@ def check_ext_glue(dev, rng) -> dict:
             f"deep_compose {tag} (N = {N})",
             lambda: ext.deep_compose(pts, opens, **q),
             lambda: ext.deep_compose_plain(pts, opens, **q), plain_reps=1)
-        # per point: two conjugates and norms (22 products), the norms
-        # inverted by Montgomery's trick (3 each), 1/(x - z) (8), three
-        # ext products for the chunks' sum and the two quotients
-        b_ms, b_by = bound_ms(4 * N * (1 + 8 + 4 * B + 4),
-                              N * (22 + 6 + 8 + 18 * (B + 2)))
+        b_ms, b_by = deep_bound(N, B, 2)
+        # the kernel's device time; the CUDA events around the wrapper
+        # also hold its host work (the constants: one copy to the host)
+        dev_ms = device_ms_by_function(
+            lambda: ext.deep_compose(pts, opens, **q), ("k_deep",))
         rows["deep_compose"].append(dict(
-            max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+            max_abs_err=err, ms=dev_ms["k_deep"], wrapper_ms=ms,
+            plain_ms=pms, bound_ms=b_ms,
             bound_by=b_by, shape=f"{tag}: N = {N}, two openings, {B} "
-                                 f"quotient chunks"))
+                                 f"quotient chunks",
+            # the count before this design's: every ext product as 18
+            # reduced Montgomery products
+            bound_ms_reduced_products=bound_ms(
+                4 * N * (1 + 8 + 4 * B + 4),
+                N * (22 + 6 + 8 + 18 * (B + 2)))[0]))
         del pts, opens, q
         # K9: the quotient's divisors and nb boundary terms
         acc = field_dev(rng, (N, 4), dev)
@@ -755,6 +851,9 @@ def check_ext_glue(dev, rng) -> dict:
     out = {}
     for name, rs in rows.items():
         out[name] = dict(rs[-1], at_state_shape=rs[0])
+    out["deep_compose"]["ptxas"] = kernel_ptxas("deep_compose.cu",
+                                                ("k_deep",))
+    for name in rows:
         log(f"[kernels] {name} ok: {out[name]}")
     return out
 
@@ -832,7 +931,7 @@ def fused_bound_ms(log_n: int, w: int = 64, log_blowup: int = 2,
              tree_bound(N),
              bound_ms(4 * (w * n + 4 * n + 4 * w), 4 * w * n + 16 * n),
              bound_ms(4 * (w * N + 4 * w + 4 * N), 4 * w * N),
-             bound_ms(4 * N * (1 + 4 + 4), N * (22 + 6 + 8 + 18))]
+             deep_bound(N, 0, 1)]
     sizes = [N >> (k + 1) for k in range(L)]
     for half in sizes:
         parts.append(bound_ms(4 * (8 * half + half + 4 * half), 28 * half))
@@ -921,36 +1020,61 @@ def _device_events(events, t_anchor: float):
     return out
 
 
+def profile_preroll() -> None:
+    """Idle device time and a host pause at the start of a profile.  The
+    profiler drops device events that it places before its start, and at
+    a profile's start the card's clock can sit behind the host's: one
+    profile on the card lost its first 1.2 s of device events."""
+    for _ in range(8):
+        torch.cuda._sleep(1 << 20)
+    torch.cuda.synchronize()
+    time.sleep(3.0)
+
+
 def profile_path(dev, result) -> dict:
     """Where each phase's wall goes: every STARK of the main path proved
-    again from its trace under torch.profiler (CPU and CUDA activity).
-    Per proof and phase: the wall, the device time (kernels, copies and
-    fills enqueued inside the phase's span), the idle share and the
-    kernels by device time; per kernel: its device time summed over the
-    proofs."""
+    again from its trace under torch.profiler (CPU and CUDA activity), in
+    one profile that opens with `profile_preroll`.  Per proof and phase:
+    the wall, the device time (kernels, copies and fills enqueued inside
+    the phase's span), the idle share and the kernels by device time;
+    per kernel: its device time summed over the proofs."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from ethrex_tpu_torch.stark import prover
 
     params = result["params"]
+    lb, shift = params.log_blowup, params.shift
     per_kernel: dict = {}
     report: dict = {}
     source = "torch.profiler"
-    unlinked_ms = 0.0
-    for name, (air, trace, pub) in result["traces"].items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function("smoke:anchor"):
-                t_anchor = time.perf_counter()
+    runs = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profile_preroll()
+        with record_function("smoke:anchor"):
+            t_anchor = time.perf_counter()
+        for name, (air, trace, pub) in result["traces"].items():
+            # the main path cached this STARK's tables: drop them, so that
+            # the profiled proof builds them (K7 and its glue) as the path
+            # did
+            head = (air.cache_key(), trace.shape[0].bit_length() - 1, lb,
+                    shift)
+            for key in [k for k in prover._TABLE_CACHE if k[:4] == head]:
+                del prover._TABLE_CACHE[key]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
             _, st = prover.prove_with_stats(air, trace, pub, params,
                                             device=dev)
             torch.cuda.synchronize()
-        ev = _device_events(prof.events(), t_anchor)
-        dev_ev = [(t, dur, nm) for t, dur, nm, _ in ev]
-        unlinked_ms += sum(dur for _, dur, _, linked in ev
-                           if not linked) / 1e3
+            runs.append((name, air, trace, pub, st,
+                         torch.cuda.max_memory_allocated(dev)))
+    ev = _device_events(prof.events(), t_anchor)
+    all_ev = [(t, dur, nm) for t, dur, nm, _ in ev]
+    unlinked_ms = sum(dur for _, dur, _, linked in ev if not linked) / 1e3
+    del prof, ev
+    for name, air, trace, pub, st, peak in runs:
+        dev_ev = all_ev
         if not dev_ev:
             source = "CUDA events around kernels.call (profiler: none)"
             (_, st), recs = _time_wrappers(lambda: prover.prove_with_stats(
@@ -979,12 +1103,14 @@ def profile_path(dev, result) -> dict:
                               mod_matmul_fns={k: round(v, 3) for k, v in
                                               by.items() if _kernel_key(k)
                                               == "mod_matmul"},
+                              torch_ms=round(sum(
+                                  v for k, v in by.items()
+                                  if k.startswith("torch ")), 3),
                               peak_gib=st.get("peak_bytes_by_phase", {})
                               .get(ph, 0) / 2**30)
             for k, v in by.items():
                 per_kernel[k] = per_kernel.get(k, 0.0) + v
         busy = sum(p["device_ms"] for p in phases.values())
-        peak = torch.cuda.max_memory_allocated(dev)
         report[name] = dict(total_s=st["total_s"], device_ms=busy,
                             idle_share=1 - busy / (st["total_s"] * 1e3),
                             peak_gib=peak / 2**30, phases=phases)
@@ -992,7 +1118,6 @@ def profile_path(dev, result) -> dict:
             f"device {busy:.1f} ms, idle share "
             f"{report[name]['idle_share']:.3f}, peak device memory "
             f"{peak / 2**30:.2f} GiB; phases {json.dumps(phases)}")
-        del prof, ev, dev_ev
     per_kernel = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1]))
     log(f"[profile] device ms per kernel over the {len(report)} STARKs: "
         f"{json.dumps({k: round(v, 3) for k, v in per_kernel.items()})}")
@@ -1005,12 +1130,23 @@ def profile_path(dev, result) -> dict:
                     d = by_phase.setdefault(key, {})
                     d[ph] = round(d.get(ph, 0.0) + row["by_kernel"][key], 3)
     peaks = {name: round(rep["peak_gib"], 3) for name, rep in report.items()}
+    tables = {name: {k: rep["phases"]["tables"]["by_kernel"].get(k, 0.0)
+                     for k in ("batch_inv", "divisor_inv", "to_mont_cols",
+                               "ntt")}
+              | {"torch": rep["phases"]["tables"]["torch_ms"],
+                 "device": round(rep["phases"]["tables"]["device_ms"], 3),
+                 "wall": round(rep["phases"]["tables"]["wall_ms"], 3)}
+              for name, rep in report.items() if "tables" in rep["phases"]}
+    log(f"[profile] tables, device ms per STARK (K7, its divisor entry, "
+        f"to_mont_cols, K1, PyTorch's own kernels; the phase's device and "
+        f"wall ms): {json.dumps(tables)}")
     log(f"[profile] K3 and K6 device ms by phase over the STARKs: "
         f"{json.dumps(by_phase)}; peak GiB per STARK {json.dumps(peaks)}; "
         f"device ms placed by the device clock (no launch call found): "
         f"{unlinked_ms:.3f}")
     return dict(source=source, proofs=report, per_kernel=per_kernel,
-                by_phase=by_phase, peak_gib=peaks, unlinked_ms=unlinked_ms)
+                by_phase=by_phase, peak_gib=peaks, unlinked_ms=unlinked_ms,
+                tables=tables)
 
 
 def check_batched_roots(dev, rng, log_n: int, log_blowup: int = 2,
@@ -1103,78 +1239,41 @@ def bases_products(n_live: int, fp2: bool) -> int:
             + elements * (3 + 4) * mult + (inverse if n_live else 0))
 
 
-def k5_ptxas() -> dict:
-    """Registers and spill bytes of each K5 device function, from the
-    ptxas report (-Xptxas -v) of this run's build of csrc/bn254_msm.cu:
-    {"k_bucket_acc<Fp2>": {"registers": r, "spill_stores": s,
-    "spill_loads": l, "callee_spill_stores": cs, "callee_spill_loads":
-    cl}, ...}, the callee figures summed over the point functions it
-    calls (pdbl, padd, madd: not inlined)."""
-    import re
-
-    from ethrex_tpu_torch import kernels
-
-    out: dict = {}
-    name = mangled = None
-    own = False
-    for line in kernels.BUILD_LOG.get("bn254_msm.cu", "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            mangled = m.group(1)
-            base = next((f for f in K5_FUNCTIONS + K5_BASES_FUNCTIONS
-                         if f in mangled), None)
-            name = None if base is None else \
-                base + ("<Fp2>" if "Fp2" in mangled else "")
-            if name:
-                out[name] = dict(registers=None, spill_stores=0,
-                                 spill_loads=0, callee_spill_stores=0,
-                                 callee_spill_loads=0)
-            continue
-        if name is None:
-            continue
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            own = m.group(1) == mangled
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            pre = "" if own else "callee_"
-            out[name][pre + "spill_stores"] += int(m.group(1))
-            out[name][pre + "spill_loads"] += int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-    return out
-
-
-def k5_device_ms(fn, runs: int = 5) -> dict:
-    """Mean device ms of each K5 device function in a run of `fn`, from
-    torch.profiler (G2's instantiations named with <Fp2>): the mean over
-    the events recorded in `runs` runs, the profiler's active step after
-    a warm-up step.  The card drops the events of the first launches of
-    a profiler step, so a short step can come back without some of its
-    functions; the mean over several runs does not depend on which."""
+def device_ms_by_function(fn, functions, runs: int = 5,
+                          tries: int = 4) -> dict:
+    """Mean device ms of each device function named in `functions` (all
+    of which `fn` launches) in a run of `fn`, from torch.profiler (K5's
+    G2 instances named with <Fp2>, other template instances without
+    their arguments): the mean over the events recorded in `runs` runs,
+    the profiler's active step after a warm-up step.  The card drops
+    device events of a profiler step, the first launches of a function
+    among them, so a step can come back without some of its functions;
+    profiles are taken again, up to `tries` in all, until each function
+    has events, and the mean over them all does not depend on which."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
     total: dict = {}
     count: dict = {}
-    for e in prof.events():
-        if e.device_type.name != "CUDA":
-            continue
-        nm = _short_kernel_name(e.name)
-        if nm.split("<")[0] in K5_FUNCTIONS + K5_BASES_FUNCTIONS:
-            total[nm] = total.get(nm, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[nm] = count.get(nm, 0) + 1
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        for e in prof.events():
+            if e.device_type.name != "CUDA":
+                continue
+            nm = _short_kernel_name(e.name)
+            if nm.split("<")[0] in functions:
+                total[nm] = total.get(nm, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+                count[nm] = count.get(nm, 0) + 1
+        if {nm.split("<")[0] for nm in total} >= set(functions):
+            break
     return {nm: round(total[nm] / count[nm], 4) for nm in total}
 
 
@@ -1196,7 +1295,7 @@ def check_msm(dev, pk, z, n_pub) -> dict:
 
     r1cs, zz = z
     h = groth16._h_coeffs(r1cs, zz, groth16._domain_size(r1cs))
-    ptxas = k5_ptxas()
+    ptxas = kernel_ptxas("bn254_msm.cu", K5_FUNCTIONS + K5_BASES_FUNCTIONS)
     log(f"[kernels] K5 ptxas (registers, spill bytes): {json.dumps(ptxas)}")
     shapes, tables = {}, {}
     for tag, name, pts, scalars, fp2 in (
@@ -1230,8 +1329,8 @@ def check_msm(dev, pk, z, n_pub) -> dict:
         table["bound_ms"], table["bound_by"] = bound_ms(
             4 * (3 * len(pts) * words16 + bases.numel()),
             bases_products(int(finite.sum()), fp2), SLOTS_PER_BN254_MUL)
-        table["device_ms_by_function"] = k5_device_ms(
-            lambda: msm_ops.msm_bases(X, Y, Z, fp2))
+        table["device_ms_by_function"] = device_ms_by_function(
+            lambda: msm_ops.msm_bases(X, Y, Z, fp2), K5_BASES_FUNCTIONS)
         tables[tag] = table
         log(f"[kernels] bn254_msm_bases {tag} (built once per point "
             f"table): {json.dumps(table)}")
@@ -1252,7 +1351,7 @@ def check_msm(dev, pk, z, n_pub) -> dict:
             raise AssertionError(f"{name} {tag}: two runs gave different "
                                  f"Jacobian bits")
         ms = cuda_ms(kern, 5)
-        by_fn = k5_device_ms(kern)
+        by_fn = device_ms_by_function(kern, K5_FUNCTIONS)
         fns = {f.split("<")[0] for f in by_fn}
         if fns != set(K5_FUNCTIONS) or any(("<Fp2>" in f) != fp2
                                            for f in by_fn):
@@ -1320,10 +1419,22 @@ def profile_wrap(dev, digest) -> dict:
             for bases in groth16_wrap.wrap_tables(dev).values()]
     runs = {}
     for label in ("first", "kept"):
-        if label == "first":
-            groth16_wrap._TABLES.clear()
-        runs[label] = _profile_one_wrap(dev, digest, label, warm)
+        for attempt in range(3):
+            if label == "first":
+                groth16_wrap._TABLES.clear()
+            try:
+                runs[label] = _profile_one_wrap(dev, digest, label, warm)
+                break
+            except ProfileEventsLost as e:
+                if attempt == 2:
+                    raise
+                log(f"[wrap] {e}; profiled again")
     return runs
+
+
+class ProfileEventsLost(AssertionError):
+    """A profile came back without device launches that the run made
+    (the card drops some of a profile's device events)."""
 
 
 def _profile_one_wrap(dev, digest, label, warm) -> dict:
@@ -1380,22 +1491,31 @@ def _profile_one_wrap(dev, digest, label, warm) -> dict:
     saved += [(msm_ops, "msm_with_bases", msm_ops.msm_with_bases),
               (msm_ops, "msm_bases", msm_ops.msm_bases)]
     msm_with_bases = msm_ops.msm_with_bases
-    for obj, attr, tag in patches:
-        setattr(obj, attr, timed(tag, getattr(obj, attr)))
-    msm_ops.msm_with_bases = device_timed(
-        msm_ops.msm_with_bases, lambda b: "g2" if b.dim() == 5 else "g1")
-    msm_ops.msm_bases = device_timed(msm_ops.msm_bases, lambda _x: "bases")
     try:
         torch.cuda.synchronize()
-        # the active step is the timed wrap; a warm-up step of the same
-        # MSMs first (the card loses a profile's first milliseconds)
+        # the active step is the timed wrap.  The card drops the first
+        # launches of a profiler step, so a warm-up step runs the same
+        # device functions first (the MSMs, and for a first wrap the
+        # tables' build, those tables dropped again), and the active step
+        # opens with `profile_preroll`, before the timers go on
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for bases, words, fp2 in warm:
                 msm_with_bases(bases, words, fp2)
+            if label == "first":
+                groth16_wrap.wrap_tables(dev)
+                groth16_wrap._TABLES.clear()
             torch.cuda.synchronize()
+            for obj, attr, tag in patches:
+                setattr(obj, attr, timed(tag, getattr(obj, attr)))
+            msm_ops.msm_with_bases = device_timed(
+                msm_ops.msm_with_bases,
+                lambda b: "g2" if b.dim() == 5 else "g1")
+            msm_ops.msm_bases = device_timed(msm_ops.msm_bases,
+                                             lambda _x: "bases")
             prof.step()
+            profile_preroll()
             t0 = time.perf_counter()
             wrapped = groth16_wrap.wrap_prove(digest, device=dev)
             torch.cuda.synchronize()
@@ -1428,11 +1548,14 @@ def _profile_one_wrap(dev, digest, label, warm) -> dict:
     per_call = {k: k5_launches[k] / calls[k] if calls[k] else 0
                 for k in kinds}
     tables = 4 if label == "first" else 0
-    if calls != {"g1": 3, "g2": 1, "bases": tables} or stray or \
-            per_call != {"g1": len(K5_FUNCTIONS), "g2": len(K5_FUNCTIONS),
-                         "bases": len(K5_BASES_FUNCTIONS) if tables else 0}:
+    if calls != {"g1": 3, "g2": 1, "bases": tables} or stray:
         raise AssertionError(f"profiled wrap ({label}): K5 calls {calls}, "
                              f"device functions {by_fn}")
+    if per_call != {"g1": len(K5_FUNCTIONS), "g2": len(K5_FUNCTIONS),
+                    "bases": len(K5_BASES_FUNCTIONS) if tables else 0}:
+        raise ProfileEventsLost(
+            f"profiled wrap ({label}): K5 calls {calls}, device launches "
+            f"per call {per_call}, device functions {by_fn}")
     parts = {k: round(v, 4) for k, v in excl.items()}
     parts["other host"] = round(wall - sum(excl.values()), 4)
     log(f"[wrap] {label}: one wrap_prove {wall:.3f} s, host s by part "
@@ -1967,7 +2090,7 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         rows = check_kernels(dev, rng)
         rows.update(check_air_kernels(dev, rng))
-        rows["batch_inv"] = check_batch_inv(dev, rng)
+        rows.update(check_batch_inv(dev, rng))
         rows.update(check_ext_glue(dev, rng))
         rows["merkle_batched_level"] = check_batched_roots(dev, rng, 20)
         rows.update(check_slice4_kernels(dev, rng))
@@ -2025,7 +2148,9 @@ def main() -> int:
             **({"per_air": row["per_air"]} if "per_air" in row else {}),
             **({"at_state_shape": row["at_state_shape"]}
                if "at_state_shape" in row else {}),
-            **{k: row[k] for k in ("bound_ms_double_and_add", "ptxas",
+            **{k: row[k] for k in ("wrapper_ms", "bound_ms_double_and_add",
+                                   "bound_ms_reduced_products",
+                                   "bound_ms_unfused", "ptxas",
                                    "launches_per_call", "wrap_device_ms",
                                    "device_ms_by_function") if k in row},
         })
@@ -2049,6 +2174,7 @@ DEVICE_FUNCTIONS = {
     "k_subtree": "poseidon2_merkle_subtree", "k_rows": "mod_matmul",
     "k_splitk": "mod_matmul", "k_splitk_finish": "mod_matmul",
     "k_fold": "fri_fold", "k_batch_inv": "batch_inv",
+    "k_divisor_inv": "divisor_inv",
     **{f: "bn254_msm_g1" for f in K5_FUNCTIONS},
     **{f + "<Fp2>": "bn254_msm_g2" for f in K5_FUNCTIONS},
     **{f: "bn254_msm_bases" for f in K5_BASES_FUNCTIONS},
@@ -2070,6 +2196,7 @@ REPLACES = {
     "air_constraints": "ethrex_tpu/stark/prover.py:527",
     "air_combine": "ethrex_tpu/stark/prover.py:527",
     "batch_inv": "ethrex_tpu/ops/babybear.py:147",
+    "divisor_inv": "ethrex_tpu/stark/prover.py:516",
     "bn254_msm_g1": "ethrex_tpu/ops/bn254_msm.py:308",
     "bn254_msm_g2": "ethrex_tpu/ops/bn254_msm.py:308",
     "bn254_msm_bases": "ethrex_tpu/ops/bn254_msm.py:308",

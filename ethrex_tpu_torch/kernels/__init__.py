@@ -46,6 +46,7 @@ KERNELS = {
     "air_constraints": "stark/air_codegen.py",
     "air_combine": "stark/air_codegen.py",
     "batch_inv": "csrc/batch_inv.cu",
+    "divisor_inv": "csrc/batch_inv.cu",
     "bn254_msm_g1": "csrc/bn254_msm.cu",
     "bn254_msm_g2": "csrc/bn254_msm.cu",
     "bn254_msm_bases": "csrc/bn254_msm.cu",
@@ -62,6 +63,10 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+# every source builds in well under a minute; an nvcc still running after
+# this long has hung (nvcc 12.8 did on one form of csrc/batch_inv.cu), and
+# the build fails instead of waiting for it
+NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _lib = None
@@ -125,8 +130,15 @@ def build(verbose: bool = False) -> Path:
         procs.append((src, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
     for src, proc in procs:
-        out, _ = proc.communicate()
+        try:
+            out, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += f"\nkilled after {NVCC_TIMEOUT_S} s".encode()
         text = out.decode(errors="replace")
         BUILD_LOG[src.name] = text
         if proc.returncode != 0:
@@ -159,11 +171,12 @@ _SIGNATURES = {
     "mod_matmul_rows": [_P, _P, _P, _L, _L, _I, _L, _L, _I, _P],
     "mod_matmul_splitk": [_P, _P, _P, _P, _L, _L, _I, _L, _L, _I, _I, _P],
     "fri_fold": [_P, _P, _P, _P, _P, _L, _P],
-    "batch_inv": [_P, _P, _L, _I, _P],
+    "batch_inv": [_P, _P, _L, _P],
+    "divisor_inv": [_P, _P, _I, _P, _L, _P],
     "bn254_msm": [_P, _P, _P, _I, _I, _P, _P],
     "bn254_msm_bases": [_P, _P, _P, _P, _I, _I, _P, _P],
     "bn254_msm_bytes": [_I, _I, _I],
-    "deep_compose": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "deep_compose": [_P, _P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _P],
     "quotient_combine": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "p2_batched_level": [_P, _P, _P, _I, _L, _P],
     "ext_powers_table": [_P, _P, _P, _L, _L, _I, _P],

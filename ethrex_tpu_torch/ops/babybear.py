@@ -9,8 +9,9 @@ returns the canonical residue, so results equal the JAX functions bit for
 bit whatever the order of the arithmetic.
 
 Three kernels live here: `mod_matmul` (K3, `csrc/mod_matmul.cu`),
-`batch_mont_inv` (K7, `csrc/batch_inv.cu`) and `to_mont_cols` (the
-trace's upload, `csrc/to_mont.cu`).  On a CUDA tensor each wrapper
+`batch_mont_inv` (K7, `csrc/batch_inv.cu`, with its divisor entry
+`divisor_stack_inv`) and `to_mont_cols` (the trace's upload,
+`csrc/to_mont.cu`).  On a CUDA tensor each wrapper
 launches its kernel; on a CPU tensor it runs the plain version beside it.
 """
 
@@ -202,11 +203,6 @@ def batch_mont_inv_plain(a):
     return mont_inv(a)
 
 
-# elements per thread of the batch-inverse kernel: the one Fermat power
-# per thread costs ~45 products, spread over this many elements
-_INV_CHUNK = 32
-
-
 def batch_mont_inv(a):
     """Elementwise inverse of a nonzero array (Montgomery in and out).
     Kernel K7 on a CUDA tensor, the Fermat power on a CPU tensor."""
@@ -216,8 +212,44 @@ def batch_mont_inv(a):
     src = a.contiguous()
     out = torch.empty_like(src)
     kernels.call("batch_inv", a.device, kernels.ptr(src), kernels.ptr(out),
-                 src.numel(), _INV_CHUNK)
+                 src.numel())
     kernels.count("batch_inv")
+    return out
+
+
+def divisor_stack_inv_plain(pts_m, head, consts):
+    """Plain version of `divisor_stack_inv`: the stack made as the
+    prover made it before the kernel (canonical int64 differences, one
+    conversion to Montgomery form), then `batch_mont_inv_plain`."""
+    pts = from_mont(pts_m).to(torch.int64)
+    stack = torch.cat(
+        [torch.tensor([int(v) % P for v in head], dtype=torch.int64,
+                      device=pts.device)]
+        + [(pts - int(c)) % P for c in consts]).to(I32)
+    return batch_mont_inv_plain(to_mont(stack))
+
+
+def divisor_stack_inv(pts_m, head, consts):
+    """The inverses of [head..., pts - consts[0], pts - consts[1], ...]
+    (B + len(consts) N,) for the domain points pts_m (N,) (Montgomery)
+    and canonical ints head and consts: the quotient's divisor stack.  0
+    where a value is 0.  On a CUDA tensor kernel K7 inverts the head and
+    its divisor entry the rest, from pts_m alone (the differences are
+    never stored)."""
+    if pts_m.device.type != "cuda":
+        return divisor_stack_inv_plain(pts_m, head, consts)
+    kernels.require_int32_cuda(pts_m, "divisor_stack_inv")
+    dev = pts_m.device
+    src = pts_m.contiguous()
+    B, N = len(head), src.numel()
+    out = torch.empty(B + len(consts) * N, dtype=I32, device=dev)
+    if B:
+        out[:B] = batch_mont_inv(mont_tensor(list(head), dev))
+    if consts:
+        cm = mont_tensor(list(consts), dev)
+        kernels.call("divisor_inv", dev, kernels.ptr(src), kernels.ptr(cm),
+                     len(consts), kernels.ptr(out[B:]), N)
+        kernels.count("divisor_inv")
     return out
 
 

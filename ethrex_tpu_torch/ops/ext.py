@@ -427,13 +427,18 @@ def deep_compose_plain(pts_m, openings, q_lde=None, q_z=None, gq=None):
     return out
 
 
-def _h_dot(t, g) -> tuple:
-    """sum_i t_i g_i over canonical ext rows (host)."""
-    acc = ZERO_H
-    for a, b in zip(t, g):
-        acc = h_add(acc, h_mul(tuple(int(v) for v in a),
-                               tuple(int(v) for v in b)))
-    return acc
+def _h_dot(t, g) -> np.ndarray:
+    """sum_i t_i g_i over canonical ext rows t, g (k, 4) (host numpy):
+    the 16 coordinate products of each row pair reduced mod p, summed
+    over the rows (k p < 2^63), then folded by x^4 = W."""
+    prods = (t.astype(np.uint64)[:, :, None] * g.astype(np.uint64)[:, None]
+             % bb.P).sum(axis=0) % bb.P                            # (4, 4)
+    out = np.zeros(4, dtype=np.uint64)
+    for a in range(4):
+        for b in range(4):
+            k = a + b
+            out[k % 4] += prods[a, b] * (W if k >= 4 else 1) % bb.P
+    return out % bb.P
 
 
 def _conj_norm_coeffs(point) -> list[int]:
@@ -466,6 +471,38 @@ def _opening_rows(sums):
     return s1, s2, st // DEG
 
 
+# MAX_NQ of csrc/deep_compose.cu: the quotient chunks its constant block
+# holds (the parameter block: 2 openings x 20 words, then g_b and W g_b)
+_DEEP_MAX_NQ = 16
+_DEEP_WORDS = 40 + 8 * _DEEP_MAX_NQ
+
+
+def _deep_consts(openings, q_z, gq) -> np.ndarray:
+    """K8's parameter block (Montgomery uint32, laid out as `Consts` in
+    csrc/deep_compose.cu): per opening s1, s2, s3, e1..e4 and c_o =
+    sum_i t_o[i] g_o[i], with sum_b gq[b] q_z[b] added to c_0; then gq
+    and W gq.  The small tensors come to the host in one copy."""
+    parts = [x for _, _, t, g in openings for x in (t, g)]
+    if gq is not None:
+        parts += [q_z, gq]
+    rows = bb.from_mont_host(bb.to_numpy(torch.cat(
+        [x.to(parts[0].device) for x in parts])))
+    sizes = np.cumsum([0] + [x.shape[0] for x in parts])
+    part = [rows[a:b] for a, b in zip(sizes[:-1], sizes[1:])]
+    k = np.zeros(_DEEP_WORDS, dtype=np.uint64)
+    for o, (point, _, _, _) in enumerate(openings):
+        k[20 * o:20 * o + 16] = _conj_norm_coeffs(point)
+        k[20 * o + 16:20 * o + 20] = _h_dot(part[2 * o], part[2 * o + 1])
+    if gq is not None:
+        z, g = part[-2], part[-1].astype(np.uint64)
+        nq = g.shape[0]
+        k[16:20] = (k[16:20] + _h_dot(z, g)) % bb.P
+        k[40:40 + 4 * nq] = g.reshape(-1)
+        k[40 + 4 * _DEEP_MAX_NQ:40 + 4 * (_DEEP_MAX_NQ + nq)] = \
+            (g * W % bb.P).reshape(-1)
+    return bb.to_mont_host(k)
+
+
 def deep_compose(pts_m, openings, q_lde=None, q_z=None, gq=None):
     """The DEEP codeword over the LDE domain points pts_m (N,):
 
@@ -474,33 +511,27 @@ def deep_compose(pts_m, openings, q_lde=None, q_z=None, gq=None):
 
     openings: one or two (z (canonical host tuple), S (N, 4) (rows 4 or
     8 words apart), t (w, 4), g (w, 4)); q_lde (nb, 4, N), q_z (nb, 4),
-    gq (nb, 4), or None for no quotient chunks (the fused prove step).
-    Montgomery tensors.  Kernel K8 on a CUDA tensor."""
+    gq (nb, 4) with nb <= 16, or None for no quotient chunks (the fused
+    prove step).  Montgomery tensors.  Kernel K8 on a CUDA tensor."""
     if pts_m.device.type != "cuda":
         return deep_compose_plain(pts_m, openings, q_lde, q_z, gq)
     if len(openings) not in (1, 2):
         raise ValueError("deep_compose takes one or two openings")
     dev = pts_m.device
     N = pts_m.shape[0]
-    consts = []
-    for point, S, t, g in openings:
+    for _, S, _, _ in openings:
         if S.shape != (N, DEG):
             raise ValueError("an opening's S must be (N, 4)")
-        c = _h_dot(bb.from_mont_host(bb.to_numpy(t)),
-                   bb.from_mont_host(bb.to_numpy(g)))
-        consts += _conj_norm_coeffs(point) + list(c)
-    if len(openings) == 1:
-        consts += [0] * 20
     nq = 0
     if q_lde is not None:
         nq = q_lde.shape[0]
         if q_lde.shape != (nq, DEG, N):
             raise ValueError("q_lde must be (nb, 4, N)")
-        consts += [int(v) for v in bb.from_mont_host(
-            bb.to_numpy(gq)).reshape(-1)]
-        consts += [int(v) for v in bb.from_mont_host(
-            bb.to_numpy(q_z)).reshape(-1)]
-    kc = bb.mont_tensor(consts, dev)
+        if nq > _DEEP_MAX_NQ or q_z.shape != (nq, DEG) or \
+                gq.shape != (nq, DEG):
+            raise ValueError(f"deep_compose takes at most {_DEEP_MAX_NQ} "
+                             f"quotient chunks, with q_z and gq (nb, 4)")
+    kc = _deep_consts(openings, q_z if nq else None, gq if nq else None)
     s1m, s2m, ss = _opening_rows([o[1] for o in openings])
     q = q_lde.contiguous() if nq else s1m
     for x, name in ((pts_m, "pts_m"), (s1m, "S"), (s2m, "S"), (q, "q_lde")):
@@ -508,7 +539,7 @@ def deep_compose(pts_m, openings, q_lde=None, q_z=None, gq=None):
     out = torch.empty((N, DEG), dtype=bb.I32, device=dev)
     kernels.call("deep_compose", dev, kernels.ptr(pts_m.contiguous()),
                  kernels.ptr(s1m), kernels.ptr(s2m), kernels.ptr(q),
-                 kernels.ptr(kc), kernels.ptr(out), N, nq,
+                 kc.ctypes.data, kc.size, kernels.ptr(out), N, nq,
                  1 if len(openings) == 2 else 0, ss)
     kernels.count("deep_compose")
     return out

@@ -92,23 +92,17 @@ def _tables(air: Air, log_n: int, lb: int, shift: int, device) -> _Tables:
     bounds_struct = [(r % n, c) for (r, c, _) in
                      air.boundaries([0] * air.num_pub_inputs, n)]
 
-    pts = bb.from_numpy(ntt.domain_points(log_N, shift), device).to(
-        torch.int64)
-
-    def canon_minus(c: int):
-        return ((pts - c) % bb.P).to(bb.I32)
-
-    x_minus_glast = canon_minus(pow(g_n, n - 1, bb.P))
+    pts_m = bb.to_mont_cols(bb.from_numpy(
+        ntt.domain_points(log_N, shift), device)[:, None])[0]
+    glast = pow(g_n, n - 1, bb.P)
     s_n = pow(shift, n, bb.P)
     uB = pow(bb.root_of_unity(log_N), n, bb.P)
-    xn_minus_1 = torch.tensor(
-        [(s_n * pow(uB, i, bb.P) - 1) % bb.P for i in range(B)],
-        dtype=bb.I32, device=device)
-    stack = torch.cat([xn_minus_1, x_minus_glast]
-                      + [canon_minus(pow(g_n, r, bb.P))
-                         for (r, _) in bounds_struct])
-    inv_stack = bb.batch_mont_inv(bb.to_mont_cols(stack[:, None])[0])
-    del stack
+    # [1/(x^n - 1) per coset class, 1/(x - g^(n-1)), 1/(x - g^r) per
+    # boundary]: K7's divisor entry makes the differences from pts_m as
+    # it inverts them
+    inv_stack = bb.divisor_stack_inv(
+        pts_m, [(s_n * pow(uB, i, bb.P) - 1) % bb.P for i in range(B)],
+        [glast] + [pow(g_n, r, bb.P) for (r, _) in bounds_struct])
 
     periodic_cols = air.periodic_columns(n)
     if len(periodic_cols) != air.num_periodic:
@@ -127,8 +121,7 @@ def _tables(air: Air, log_n: int, lb: int, shift: int, device) -> _Tables:
             bb.from_numpy(np.stack(rows), device), N, shift=shift)
     tables = _Tables(
         periodic=periodic, inv_stack=inv_stack,
-        x_minus_glast=bb.to_mont_cols(x_minus_glast[:, None])[0],
-        pts_m=bb.to_mont_cols(pts.to(bb.I32)[:, None])[0],
+        x_minus_glast=bb.sub(pts_m, bb.const(glast, device)), pts_m=pts_m,
         bounds_struct=bounds_struct,
         num_constraints=air.num_constraints)
     _TABLE_CACHE[key] = tables

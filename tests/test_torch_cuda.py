@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K11 (K6 in both its modes: the constraint block
-and its fused alpha combination) and the four slice-4 kernels (ext_inv,
+and its fused alpha combination; K7 with its divisor entry) and the four
+slice-4 kernels (ext_inv,
 ext_batch_inv, eval_poly_at, to_mont_cols) against their plain PyTorch
 versions on the card, at small and ragged shapes that reach every branch
 of the NTT's pass plan and the Merkle subtree plan (chip_smoke.py covers
@@ -16,6 +17,8 @@ fails to build on a CUDA host fails its test.  This file imports neither
 JAX nor the JAX package, so on a machine without JAX it runs as
 `python -m pytest --noconftest tests/test_torch_cuda.py -q`.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -205,7 +208,21 @@ def test_launches_are_counted_only_on_the_card(dev):
     assert kernels.LAUNCHES["ntt"] == 1
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 100003])
+def _cu_int(src: str, name: str) -> int:
+    """A `constexpr int` of a kernel source."""
+    text = (kernels.CSRC / src).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# K7's block: THREADS x CHUNK elements
+_K7_THREADS = _cu_int("batch_inv.cu", "THREADS")
+_K7_CHUNK = _cu_int("batch_inv.cu", "CHUNK")
+_K7_BLOCK = _K7_THREADS * _K7_CHUNK
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, _K7_BLOCK - 1,
+                               _K7_BLOCK, _K7_BLOCK + 1, 100003,
+                               3 * _K7_BLOCK + 17])
 def test_batch_inv_kernel_equals_plain(dev, n):
     a = _field(n, (n,), dev)
     a[:: max(1, n // 7)] = 0            # zeros map to zero in both
@@ -213,6 +230,41 @@ def test_batch_inv_kernel_equals_plain(dev, n):
     assert torch.equal(got, bb.batch_mont_inv_plain(a))
     nz = a != 0
     assert torch.all(bb.mont_mul(got[nz], a[nz]) == bb.MONT_ONE)
+
+
+def test_batch_inv_kernel_zero_chunks_warps_and_blocks(dev):
+    """Zeros at a thread's chunk, a warp and a whole block, and at the
+    edges between them, next to nonzero elements."""
+    n = 4 * _K7_BLOCK + 5
+    a = _field(77, (n,), dev)
+    a[_K7_BLOCK:2 * _K7_BLOCK] = 0                 # a whole block
+    for c in range(_K7_CHUNK):
+        w0 = 2 * _K7_BLOCK + _K7_THREADS * c
+        a[w0:w0 + 32] = 0                          # warp 0
+        a[3 * _K7_BLOCK + 3 + _K7_THREADS * c] = 0  # thread 3's chunk
+    a[_K7_BLOCK - 1] = a[4 * _K7_BLOCK] = a[-1] = 0
+    got = bb.batch_mont_inv(a)
+    assert torch.equal(got, bb.batch_mont_inv_plain(a))
+    assert torch.equal(bb.batch_mont_inv(torch.zeros_like(a)),
+                       torch.zeros_like(a))
+
+
+@pytest.mark.parametrize("N,nd", [(1, 1), (100, 3), (_K7_BLOCK + 1, 11),
+                                  (1 << 15, 25)])
+def test_divisor_stack_inv_kernel_equals_plain(dev, N, nd):
+    pts = _field(N, (N,), dev)
+    rng = np.random.default_rng(N)
+    consts = [int(v) for v in rng.integers(0, bb.P, nd)]
+    # a constant on a domain point: that difference is 0 and maps to 0
+    consts[-1] = int(bb.from_mont_host(bb.to_numpy(pts[N // 2:N // 2 + 1]))
+                     [0])
+    head = [int(v) for v in rng.integers(1, bb.P, 8)]
+    kernels.reset_launches()
+    got = bb.divisor_stack_inv(pts, head, consts)
+    assert kernels.LAUNCHES["divisor_inv"] == 1
+    assert kernels.LAUNCHES["batch_inv"] == 1
+    assert torch.equal(got, bb.divisor_stack_inv_plain(pts, head, consts))
+    assert int(got[8 + (nd - 1) * N + N // 2]) == 0
 
 
 def test_inv_x_minus_zeta_on_the_card_equals_cpu(dev):
@@ -472,9 +524,17 @@ def test_quotient_combine_kernel_equals_plain(dev, nb):
         acc, xm, inv, lde, cols, bvals, apb, B))
 
 
-@pytest.mark.parametrize("two,nq", [(True, 8), (True, 0), (False, 0)])
-def test_deep_compose_kernel_equals_plain(dev, two, nq):
-    N, w = 1 << 12, 7
+# K8's block of points: THREADS x PTS
+_K8_BLOCK = (_cu_int("deep_compose.cu", "THREADS")
+             * _cu_int("deep_compose.cu", "PTS"))
+
+
+@pytest.mark.parametrize("two,nq,N", [
+    (True, 8, 1 << 12), (True, 0, 1 << 12), (False, 0, 1 << 12),
+    (True, 8, 1), (True, 8, _K8_BLOCK + 1), (True, 4, 3 * _K8_BLOCK - 5),
+    (False, 0, _K8_BLOCK + 9), (True, 16, 4099)])
+def test_deep_compose_kernel_equals_plain(dev, two, nq, N):
+    w = 7
     pts = _field(1, (N,), dev)
     opens = [(_ext_point(10 + o), _field(20 + o, (N, 4), dev),
               _field(30 + o, (w, 4), dev), _field(40 + o, (w, 4), dev))
@@ -483,6 +543,38 @@ def test_deep_compose_kernel_equals_plain(dev, two, nq):
              gq=_field(7, (nq, 4), dev)) if nq else {}
     got = ext.deep_compose(pts, opens, **q)
     assert torch.equal(got, ext.deep_compose_plain(pts, opens, **q))
+
+
+@pytest.mark.parametrize("two", [True, False])
+def test_deep_compose_zero_norm(dev, two):
+    """zeta in the base field on a domain point: its norm is 0 there, so
+    1/(x - zeta) maps to 0 at that point alone and its neighbours in the
+    same inversion are unharmed."""
+    N, w = _K8_BLOCK + 3, 5
+    pts = _field(2, (N,), dev)
+    z = int(bb.from_mont_host(bb.to_numpy(pts[9:10]))[0])
+    opens = [((z, 0, 0, 0), _field(21, (N, 4), dev), _field(31, (w, 4), dev),
+              _field(41, (w, 4), dev))]
+    if two:
+        opens.append((_ext_point(12), _field(22, (N, 4), dev),
+                      _field(32, (w, 4), dev), _field(42, (w, 4), dev)))
+    q = dict(q_lde=_field(5, (8, 4, N), dev), q_z=_field(6, (8, 4), dev),
+             gq=_field(7, (8, 4), dev))
+    got = ext.deep_compose(pts, opens, **q)
+    assert torch.equal(got, ext.deep_compose_plain(pts, opens, **q))
+    if not two:
+        assert not got[9].any() and got[8].any() and got[10].any()
+
+
+def test_deep_compose_fused_step_shape(dev):
+    """The fused step's one-opening form at the smoke's log_n 15 (width 64,
+    blowup 4: 2^17 points), no quotient chunks."""
+    N, w = 1 << 17, 64
+    pts = _field(3, (N,), dev)
+    opens = [(_ext_point(13), _field(23, (N, 4), dev),
+              _field(33, (w, 4), dev), _field(43, (w, 4), dev))]
+    got = ext.deep_compose(pts, opens)
+    assert torch.equal(got, ext.deep_compose_plain(pts, opens))
 
 
 @pytest.mark.parametrize("sizes", [(1,), (4, 1, 2), (64, 32, 1, 16, 8, 1),

@@ -1,6 +1,8 @@
-"""The index math of kernels K1 (NTT) and K2 (Merkle subtrees), and the
+"""The index math of kernels K1 (NTT) and K2 (Merkle subtrees), the
 lazy 64-bit sums of K3 (modular matmul) and K6 (the AIR constraints'
-alpha combination), rehearsed on the CPU.
+alpha combination), and the batched inversions of K7 (with its divisor
+entry) and K8 (the DEEP codeword, with its lazy sums), rehearsed on the
+CPU.
 
 The CUDA kernels take their pass plans from the Python wrappers
 (`ntt.ntt_plan`, `ntt.radix_rounds`, the twiddle tables, and
@@ -510,3 +512,406 @@ def test_combine_model_worst_case_at_the_largest_air():
                         apow.astype(np.uint64))
     want = np.asarray(jbb.mod_matmul(cons.T.copy(), apow))
     assert np.array_equal(got.astype(np.uint32), want)
+
+
+# ---------------------------------------------------------------------------
+# K7 (batch inversion, csrc/batch_inv.cu) and K8 (the DEEP codeword,
+# csrc/deep_compose.cu)
+# ---------------------------------------------------------------------------
+#
+# Both kernels invert many values with one inversion (Montgomery's trick)
+# and K8 sums raw products lazily.  The models below run the kernels'
+# plans in numpy uint64, with their sizes read from the sources: which
+# values share an inversion, the order of the running products, the
+# shuffle scans, and every bb::mad and bb::fold (`_mad` fails on a wrap
+# of 2^64).
+
+
+def _mont(a, b):
+    return _redc(np.asarray(a, dtype=np.uint64) * np.asarray(b, np.uint64))
+
+
+def _add(a, b):
+    s = np.asarray(a, np.uint64) + np.asarray(b, np.uint64)
+    return np.where(s >= P, s - P, s)
+
+
+def _sub(a, b):
+    a, b = np.asarray(a, np.uint64), np.asarray(b, np.uint64)
+    return np.where(a >= b, a - b, a + P - b)
+
+
+def _mpow(a, e: int):
+    """`bb::mpow`: a^e by square and multiply."""
+    r = np.full_like(np.asarray(a, np.uint64), bb.MONT_ONE)
+    while e:
+        if e & 1:
+            r = _mont(r, a)
+        a = _mont(a, a)
+        e >>= 1
+    return r
+
+
+_ONE = np.uint64(bb.MONT_ONE)
+
+
+def _shfl_scan(v, axis_len, up: bool, steps):
+    """The kernels' Hillis-Steele shuffle scan of products along the last
+    axis (32 lanes): lane l takes lane l -/+ d's value for d in steps,
+    when that lane exists."""
+    v = v.copy()
+    lanes = np.arange(axis_len)
+    for d in steps:
+        if up:
+            src = np.concatenate([v[..., :1].repeat(d, -1), v[..., :-d]],
+                                 -1)
+            ok = lanes >= d
+        else:
+            src = np.concatenate([v[..., d:], v[..., -1:].repeat(d, -1)],
+                                 -1)
+            ok = lanes + d < axis_len
+        v = np.where(ok, _mont(v, src), v)
+    return v
+
+
+def model_block_inv(v):
+    """csrc/batch_inv.cu `block_inv` over v (blocks, THREADS, CHUNK)
+    uint64 Montgomery (thread t's element c at [., t, c]): returns the
+    inverses, 0 for 0."""
+    c = _cu_constants("batch_inv.cu")
+    threads, chunk = c["THREADS"], c["CHUNK"]
+    warps = threads // 32
+    nb = v.shape[0]
+    assert v.shape == (nb, threads, chunk)
+    pre = np.empty_like(v)
+    run = np.full((nb, threads), _ONE, dtype=np.uint64)
+    for k in range(chunk):
+        pre[..., k] = run
+        run = np.where(v[..., k] != 0, _mont(run, v[..., k]), run)
+    lanes = run.reshape(nb, warps, 32)
+    steps = [1 << s for s in range(5)]
+    inc = _shfl_scan(lanes, 32, True, steps)
+    suf = _shfl_scan(lanes, 32, False, steps)
+    before = np.concatenate([np.full((nb, warps, 1), _ONE), inc[..., :-1]],
+                            -1)
+    after = np.concatenate([suf[..., 1:], np.full((nb, warps, 1), _ONE)],
+                           -1)
+    # warp 0: the warps' products on its first lanes, one elsewhere
+    wt = np.full((nb, 32), _ONE, dtype=np.uint64)
+    wt[:, :warps] = inc[..., 31]
+    wsteps = [d for d in steps if d < warps]
+    wi = _shfl_scan(wt, 32, True, wsteps)
+    ws = _shfl_scan(wt, 32, False, wsteps)
+    wb = np.concatenate([np.full((nb, 1), _ONE), wi[:, :-1]], -1)
+    wa = np.concatenate([ws[:, 1:], ws[:, -1:]], -1)
+    total_inv = _mpow(wi[:, warps - 1], bb.P - 2)
+    factor = _mont(total_inv[:, None], _mont(wb, wa))[:, :warps]
+    inv = _mont(factor[..., None], _mont(before, after)).reshape(nb, threads)
+    out = np.zeros_like(v)
+    for k in range(chunk - 1, -1, -1):
+        x = v[..., k]
+        out[..., k] = np.where(x != 0, _mont(inv, pre[..., k]), 0)
+        inv = np.where(x != 0, _mont(inv, x), inv)
+    return out
+
+
+def _blocks(a, pad=0):
+    """(n,) -> (blocks, THREADS, CHUNK) as K7 places it: element
+    block * THREADS * CHUNK + c * THREADS + t at [block, t, c]; the tail
+    padded with `pad` (a value the kernel leaves out)."""
+    c = _cu_constants("batch_inv.cu")
+    threads, chunk = c["THREADS"], c["CHUNK"]
+    per = threads * chunk
+    nbk = -(-a.shape[0] // per)
+    full = np.full(nbk * per, pad, dtype=np.uint64)
+    full[:a.shape[0]] = a
+    return full.reshape(nbk, chunk, threads).transpose(0, 2, 1)
+
+
+def _unblocks(v, n):
+    return v.transpose(0, 2, 1).reshape(-1)[:n]
+
+
+def model_k_batch_inv(a):
+    return _unblocks(model_block_inv(_blocks(a)), a.shape[0])
+
+
+_K7_CONST = _cu_constants("batch_inv.cu")
+_K7_BLOCK = _K7_CONST["THREADS"] * _K7_CONST["CHUNK"]
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, _K7_BLOCK + 1])
+def test_k7_model_equals_jax_batch_mont_inv(n):
+    a = _field(n, (n,)).astype(np.uint64)
+    a[a == 0] = bb.MONT_ONE
+    got = model_k_batch_inv(a)
+    want = np.asarray(jbb.batch_mont_inv(a.astype(np.uint32)))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+def _with_zeros(n, seed):
+    a = _field(seed, (n,)).astype(np.uint64)
+    t = _K7_CONST["THREADS"]
+    blk = _K7_BLOCK
+    a[::max(1, n // 5)] = 0
+    if n > blk:
+        a[blk - 1] = a[blk] = 0                    # a block's edge
+    if n > 2 * blk:
+        for c in range(_K7_CONST["CHUNK"]):
+            a[blk + c * t:blk + c * t + 32] = 0    # warp 0 of block 1
+            a[blk + c * t + 33] = 0                # thread 33's chunk
+        a[2 * blk:3 * blk] = 0                     # a whole block
+    a[min(31, n - 1)] = a[min(32, n - 1)] = 0      # a warp's edge
+    return a
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, _K7_BLOCK + 1,
+                               3 * _K7_BLOCK + 1])
+def test_k7_model_with_zeros_equals_fermat(n):
+    """Zeros (left out of the products, mapped to 0) at chunk, warp and
+    block edges and a whole block of zeros: each element as the
+    per-element Fermat power of the JAX package gives it."""
+    a = _with_zeros(n, n + 5)
+    got = model_k_batch_inv(a)
+    want = np.asarray(jbb.mont_inv(a.astype(np.uint32)))
+    assert np.array_equal(got.astype(np.uint32), want)
+    assert not got[a == 0].any()
+
+
+def model_k_divisor_inv(pts_m, cm):
+    """`k_divisor_inv`: each block's domain points once, then `block_inv`
+    of x - c_j for each constant in turn -> (nd, N)."""
+    N = pts_m.shape[0]
+    x = _blocks(pts_m)
+    valid = _blocks(np.ones(N, dtype=np.uint64)) != 0
+    return np.stack([_unblocks(model_block_inv(
+        np.where(valid, _sub(x, c), 0)), N) for c in cm])
+
+
+def _reference_stack(air, log_n, lb, shift):
+    """The reference's inverted divisor stack (ethrex_tpu/stark/
+    prover.py:488-518), read from its quotient phase's closure."""
+    from ethrex_tpu.stark import prover as jprover
+
+    bodies, _ = jprover._build_phases(air, log_n, lb, shift)
+    quotient = bodies[1]
+    cells = dict(zip(quotient.__code__.co_freevars, quotient.__closure__))
+    return np.asarray(cells["inv_stack_np"].cell_contents)
+
+
+def test_k7_divisor_model_equals_jax_stack():
+    """K7's divisor entry, as `prover._tables` calls it (the B coset-class
+    entries by K7, the rest from the domain points), for a small AIR with
+    boundaries: equal to the reference's inverted stack."""
+    from ethrex_tpu.models import state_update_air as jsua
+    from ethrex_tpu_torch.models import state_update_air as sua
+    from ethrex_tpu_torch.stark import prover
+
+    log_n, lb, shift = 8, 3, bb.GENERATOR
+    want = _reference_stack(jsua.StateUpdateAir(2, seg_periods=8), log_n,
+                            lb, shift)
+    air = sua.StateUpdateAir(2, seg_periods=8)
+    n, B = 1 << log_n, 1 << lb
+    tb = prover._tables(air, log_n, lb, shift, "cpu")
+    g_n = bb.root_of_unity(log_n)
+    consts = [pow(g_n, n - 1, bb.P)] + [pow(g_n, r, bb.P)
+                                        for r, _ in tb.bounds_struct]
+    pts_m = bb.to_numpy(tb.pts_m).astype(np.uint64)
+    cm = bb.to_mont_host(np.array(consts, dtype=np.uint64)).astype(
+        np.uint64)
+    s_n, uB = pow(shift, n, bb.P), pow(bb.root_of_unity(log_n + lb), n, bb.P)
+    head = bb.to_mont_host(np.array(
+        [(s_n * pow(uB, i, bb.P) - 1) % bb.P for i in range(B)],
+        dtype=np.uint64)).astype(np.uint64)
+    got = np.concatenate([model_k_batch_inv(head),
+                          model_k_divisor_inv(pts_m, cm).reshape(-1)])
+    assert len(tb.bounds_struct) > 0
+    assert np.array_equal(got.astype(np.uint32), want)
+    assert np.array_equal(bb.to_numpy(tb.inv_stack), want)
+
+
+_K8_CONST = _cu_constants("deep_compose.cu")
+
+
+def _k8_ext_mad(a, b, wb, acc):
+    """`ext_mad` of csrc/deep_compose.cu: per coordinate its four raw
+    products in the source's order (innermost first), then a fold."""
+    terms = ([(3, wb[1]), (2, wb[2]), (1, wb[3]), (0, b[0])],
+             [(3, wb[2]), (2, wb[3]), (1, b[0]), (0, b[1])],
+             [(3, wb[3]), (2, b[0]), (1, b[1]), (0, b[2])],
+             [(3, b[0]), (2, b[1]), (1, b[2]), (0, b[3])])
+    out = []
+    for m in range(4):
+        x = acc[m]
+        for k, bv in terms[m]:
+            x = _mad(x, a[k], bv)
+        out.append(_fold(x))
+    return out
+
+
+def _k8_norm(o, x):
+    n = _sub(x, o["e"][0])
+    n = _add(_mont(n, x), o["e"][1])
+    n = _sub(_mont(n, x), o["e"][2])
+    return _add(_mont(n, x), o["e"][3])
+
+
+def _k8_inv_x_minus(o, x, ninv):
+    acc = [_sub(x, o["s1"][0])] + [_sub(np.zeros_like(x), o["s1"][m])
+                                   for m in (1, 2, 3)]
+    acc = [_add(_mont(acc[m], x), o["s2"][m]) for m in range(4)]
+    iz = [_mont(_sub(_mont(acc[m], x), o["s3"][m]), ninv) for m in range(4)]
+    wiz = [None] + [_mont(iz[m], np.uint64(bb.to_mont_host(11)))
+                    for m in (1, 2, 3)]
+    return iz, wiz
+
+
+def model_k_deep(pts, s1, s2, q, kc, nq):
+    """`k_deep` over pts (N,), s1 and s2 (N, 4) (s2 None: one opening),
+    q (nq, 4, N), kc the parameter words (uint64 Montgomery): thread t of
+    block b takes the points b THREADS PTS + j THREADS + t."""
+    pts_per, threads, maxq = (_K8_CONST["PTS"], _K8_CONST["THREADS"],
+                              _K8_CONST["MAX_NQ"])
+    NO = 1 if s2 is None else 2
+    N = pts.shape[0]
+    nblk = -(-N // (threads * pts_per))
+    idx = (np.arange(nblk)[:, None, None] * threads * pts_per
+           + np.arange(pts_per)[None, None, :] * threads
+           + np.arange(threads)[None, :, None]).reshape(-1, pts_per)
+    valid = idx < N
+    x = np.where(valid, pts[np.where(valid, idx, 0)], 0)
+    op = [dict(s1=kc[20 * o:20 * o + 4], s2=kc[20 * o + 4:20 * o + 8],
+               s3=kc[20 * o + 8:20 * o + 12], e=kc[20 * o + 12:20 * o + 16],
+               c=kc[20 * o + 16:20 * o + 20]) for o in range(2)]
+    g = kc[40:40 + 4 * maxq].reshape(maxq, 4)
+    wg = kc[40 + 4 * maxq:40 + 8 * maxq].reshape(maxq, 4)
+    nt = idx.shape[0]
+    run = np.full(nt, _ONE, dtype=np.uint64)
+    nrm = np.zeros((nt, pts_per, NO), dtype=np.uint64)
+    pre = np.zeros_like(nrm)
+    for j in range(pts_per):
+        for o in range(NO):
+            v = np.where(valid[:, j], _k8_norm(op[o], x[:, j]), 0)
+            nrm[:, j, o], pre[:, j, o] = v, run
+            run = np.where(v != 0, _mont(run, v), run)
+    inv = _mpow(run, bb.P - 2)
+    out = np.zeros((N, 4), dtype=np.uint64)
+    for j in range(pts_per - 1, -1, -1):
+        ninv = [None] * NO
+        for o in range(NO - 1, -1, -1):
+            v = nrm[:, j, o]
+            ninv[o] = np.where(v != 0, _mont(inv, pre[:, j, o]), 0)
+            inv = np.where(v != 0, _mont(inv, v), inv)
+        sel = valid[:, j]
+        i, xx = idx[sel, j], x[sel, j]
+        acc = [_mad(np.zeros(len(i), np.uint64), _sub(s1[i, m], op[0]["c"][m]),
+                    _ONE) for m in range(4)]
+        for b in range(nq):
+            acc = _k8_ext_mad([q[b, m, i] for m in range(4)], g[b], wg[b],
+                              acc)
+        a = [_redc(acc[m]) for m in range(4)]
+        r = [np.zeros(len(i), np.uint64) for _ in range(4)]
+        iz, wiz = _k8_inv_x_minus(op[0], xx, ninv[0][sel])
+        r = _k8_ext_mad(a, iz, wiz, r)
+        if NO == 2:
+            d = [_sub(s2[i, m], op[1]["c"][m]) for m in range(4)]
+            iz, wiz = _k8_inv_x_minus(op[1], xx, ninv[1][sel])
+            r = _k8_ext_mad(d, iz, wiz, r)
+        out[i] = np.stack([_redc(r[m]) for m in range(4)], axis=1)
+    return out
+
+
+def _jax_deep(pts, opens, q_lde, q_z, gq):
+    """The reference's arithmetic: `phase_deep` (ethrex_tpu/stark/
+    prover.py:565-585) with two openings, the fused step's DEEP codeword
+    (ethrex_tpu/parallel/core.py:103-108) with one; uint32 Montgomery."""
+    from ethrex_tpu.ops import ext as jext
+
+    def zm(z):
+        return bb.to_mont_host(np.array(z, dtype=np.uint64))
+
+    terms = []
+    for z, S, t, g in opens:
+        inv = jext.inv_x_minus_zeta(pts, zm(z))
+        terms.append((jext.sub(S, jbb.sum_mod(jext.mul(t, g), axis=0)[None]),
+                      inv))
+    (s1, inv0) = terms[0]
+    if q_lde is not None:
+        d3 = jext.sub(np.moveaxis(q_lde, 1, -1), q_z[:, None])
+        s1 = jext.add(s1, jbb.sum_mod(jext.mul(d3, gq[:, None]), axis=0))
+    out = jext.mul(s1, inv0)
+    if len(terms) == 2:
+        out = jext.add(out, jext.mul(terms[1][0], terms[1][1]))
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("N,two,nq,worst", [
+    (N, two, nq, False) for N in (1, _K8_CONST["PTS"] + 1, 4099)
+    for two, nq in ((True, 8), (True, 0), (False, 0))]
+    + [(4099, True, 16, True), (4099, False, 0, True)])
+def test_k8_model_equals_jax_deep(N, two, nq, worst):
+    """The k-point inversion chain, the host's constant c1 + sum_b g_b
+    Q_b(zeta) (`ext._deep_consts`), the lazy sums (no accumulator wraps,
+    also with every value p - 1) and the tail past N."""
+    from ethrex_tpu_torch.ops import ext
+
+    w = 5
+    seed = N * 10 + nq + (2 if two else 1)
+    pts = _field(seed, (N,))
+    s12 = _field(seed + 1, (N, 8))
+    ts = [_field(seed + 2 + o, (w, 4)) for o in (0, 1)]
+    gs = [_field(seed + 4 + o, (w, 4)) for o in (0, 1)]
+    q_lde, q_z, gq = (_field(seed + 6, (nq, 4, N)), _field(seed + 7, (nq, 4)),
+                      _field(seed + 8, (nq, 4)))
+    if worst:
+        for arr in (s12, q_lde, q_z, gq, *ts, *gs):
+            arr[...] = bb.P - 1
+    rng = np.random.default_rng(seed)
+    zs = [tuple(int(v) for v in rng.integers(0, bb.P, 4)) for _ in (0, 1)]
+    nopen = 2 if two else 1
+    opens = [(zs[o], s12[:, 4 * o:4 * o + 4], ts[o], gs[o])
+             for o in range(nopen)]
+
+    def th(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+    kc = ext._deep_consts([(z, th(S), th(t), th(g)) for z, S, t, g in opens],
+                          th(q_z) if nq else None, th(gq) if nq else None)
+    u = np.uint64
+    got = model_k_deep(pts.astype(u), s12[:, :4].astype(u),
+                       s12[:, 4:].astype(u) if two else None,
+                       q_lde.astype(u), kc.astype(u), nq)
+    want = _jax_deep(pts, opens, q_lde if nq else None, q_z, gq)
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+def test_k8_model_base_field_zeta_on_a_point():
+    """zeta = (x_9, 0, 0, 0): the norm of x_9 is 0, so its inverse is 0
+    and the other norms of the same inversion are unharmed."""
+    from ethrex_tpu_torch.ops import ext
+
+    N, w = _K8_CONST["THREADS"] * 2 + 3, 3
+    pts = _field(91, (N,))
+    z = (int(bb.from_mont_host(pts[9:10])[0]), 0, 0, 0)
+    S, t, g = _field(92, (N, 4)), _field(93, (w, 4)), _field(94, (w, 4))
+
+    def th(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+    kc = ext._deep_consts([(z, th(S), th(t), th(g))], None, None)
+    u = np.uint64
+    got = model_k_deep(pts.astype(u), S.astype(u), None,
+                       np.zeros((0, 4, N), u), kc.astype(u), 0)
+    want = _jax_deep(pts, [(z, S, t, g)], None, None, None)
+    assert np.array_equal(got.astype(np.uint32), want)
+    assert not want[9].any() and want[8].any() and want[10].any()
+
+
+def test_kernel_plan_sizes():
+    """The sizes the wrappers and the tests assume are the sources'."""
+    from ethrex_tpu_torch.ops import ext
+
+    assert _K8_CONST["MAX_NQ"] == ext._DEEP_MAX_NQ
+    assert ext._DEEP_WORDS == 40 + 8 * _K8_CONST["MAX_NQ"]
+    assert _K7_CONST["THREADS"] % 32 == 0
+    assert _K7_CONST["THREADS"] // 32 <= 32
