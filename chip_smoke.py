@@ -28,7 +28,12 @@ Phases:
      K7 on
      the outer divisor stack, and its divisor entry on the outer proof's
      domain (2^25 points, 11 constants); K8, K9 and K11 at the state and
-     the outer proof's shapes; K10 on the fused step's FRI layer trees; the ext
+     the outer proof's shapes (K11 as the open phase calls it: both
+     points' tables and the chunks at zeta in one launch; also its
+     single-point table at the fused step's 2^20); K10 on the fused
+     step's FRI layer trees at log_n 20 and 15 (K8, K10 and K11 timed as
+     device time from torch.profiler, the call beside it, with their
+     ptxas registers and spills); the ext
      inverses on 2^20 elements, eval_poly_at on 64 x 2^16 and
      to_mont_cols on the TransferAir trace (2^20 x 278);
   4. the main path, with the launch counts zeroed just before and read
@@ -133,7 +138,9 @@ K5_BASES_FUNCTIONS = ("k_shift", "k_affine")
 # not measured by this run, so logged on a line of its own.
 # K1 the state LDE, K2 the state leaves and one tree level (2^22 -> 2^21),
 # K7 the outer divisor stack and K8, K9, K11 the outer shape (K7 and K8
-# by PR 5's smoke), K10 the fused step's layers; K3 the state
+# the call, by an earlier smoke; K11 the earlier design's device time,
+# three launches, by tools/k10_k11.py), K10 the fused step's layers at
+# log_n 20 (device time, tools/k10_k11.py); K3 the state
 # deep phase's two m = 4 calls, and the fused K6 TransferAir's block
 # (38.613 ms) plus K3's read of it (31.566 ms), both by the kernels
 # before their current design; K5 the double-and-add kernel that the
@@ -143,8 +150,8 @@ EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
               "fri_fold": 0.073, "air_combine": 70.179,
               "batch_inv": 2.830, "bn254_msm_g1": 12.308,
               "bn254_msm_g2": 40.577, "deep_compose": 5.604,
-              "quotient_combine": 1.567, "merkle_batched_level": 2.909,
-              "ext_poly_eval": 4.335}
+              "quotient_combine": 1.567, "merkle_batched_level": 1.683,
+              "ext_poly_eval": 0.814}
 # kernels the groth16 paths need not launch: the reference's test-only
 # helpers (no path of the system runs them) and the fused step's own
 NOT_ON_GROTH16_PATHS = ("ext_inv", "ext_batch_inv", "eval_poly_at",
@@ -825,27 +832,12 @@ def check_ext_glue(dev, rng) -> dict:
             max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
             bound_by=b_by, shape=f"{tag}: N = {N}, {nb} boundaries"))
         del acc, xm, inv, lde
-        # K11: the quotient chunks at zeta (a (B, n, 4) view of the
-        # (B, 4, n) coefficients) and the (n, 4) power table of the open
-        # phase
+        # K11 as the open phase calls it: both points' power tables (K3's
+        # (n, 8) operand) and the quotient chunks at zeta (a (B, n, 4)
+        # view of the (B, 4, n) coefficients) in one launch
         chunks = field_dev(rng, (B, 4, n), dev).permute(0, 2, 1)
-        z = point()
-        err, ms, pms = compare(
-            f"ext_poly_eval {tag} ({B} x {n})",
-            lambda: ext.eval_ext_poly_at_ext(chunks, z),
-            lambda: ext.eval_ext_poly_at_ext_plain(chunks, z), plain_reps=1)
-        err2, ms2, pms2 = compare(
-            f"ext_powers_table {tag} ({n})",
-            lambda: ext.powers_table(z, n, dev),
-            lambda: ext.ext_powers_blocked(z, n, device=dev), plain_reps=1)
-        # one ext product per power and one per coefficient
-        b_ms, b_by = bound_ms(4 * (B * n * 4 + B * 4 + n * 4),
-                              18 * (B * n + n))
-        rows["ext_poly_eval"].append(dict(
-            max_abs_err=max(err, err2), ms=ms + ms2, plain_ms=pms + pms2,
-            bound_ms=b_ms, bound_by=b_by,
-            shape=f"{tag}: {B} chunks x {n} at zeta + the ({n}, 4) power "
-                  f"table"))
+        rows["ext_poly_eval"].append(check_open_powers(
+            tag, dev, (point(), point()), n, chunks))
         del chunks
         torch.cuda.empty_cache()
     out = {}
@@ -853,9 +845,86 @@ def check_ext_glue(dev, rng) -> dict:
         out[name] = dict(rs[-1], at_state_shape=rs[0])
     out["deep_compose"]["ptxas"] = kernel_ptxas("deep_compose.cu",
                                                 ("k_deep",))
+    out["ext_poly_eval"]["ptxas"] = kernel_ptxas("ext_poly_eval.cu",
+                                                 ("k_open",))
+    out["ext_poly_eval"]["fused_step_table"] = check_powers_table(
+        dev, rng, 1 << 20)
     for name in rows:
         log(f"[kernels] {name} ok: {out[name]}")
     return out
+
+
+def open_bound(n: int, B: int, points: int) -> tuple[float, str]:
+    """K11's bound: per row i it reads the B chunk words (16 bytes each)
+    and writes each point's power (16 bytes); one ext Montgomery product
+    a row and point for the powers (16 products and 3 by W), 3 for W z
+    when there are chunks, and 16 raw products a row and chunk summed
+    lazily, with one reduction a coordinate and chunk (the least any
+    design needs; the kernel reduces once a thread)."""
+    mont = points * 19 + (3 if B else 0)
+    slots = mont * SLOTS_PER_MONT + 16 * B * SLOTS_PER_RAW
+    return bound_ms(16 * n * (B + points) + 16 * B,
+                    n * slots + 4 * B * SLOTS_PER_REDC, 1)
+
+
+def check_open_powers(tag, dev, points, n, chunks) -> dict:
+    """K11 (`ext.open_powers`) against its plain version, bit-equal, at
+    one of the open phase's shapes; timed as device time (torch.profiler,
+    `ms`) and as the call (CUDA events, `wrapper_ms`)."""
+    from ethrex_tpu_torch.ops import ext
+
+    B = chunks.shape[0]
+    table, sums = ext.open_powers(points, n, chunks)
+    p_table, p_sums = ext.open_powers_plain(points, n, chunks)
+    if not (torch.equal(table, p_table) and torch.equal(sums, p_sums)):
+        raise AssertionError(f"ext_poly_eval {tag} ({B} x {n}, two "
+                             f"points): kernel differs from its plain "
+                             f"version")
+    del table, sums, p_table, p_sums
+    # the chunks alone (no table), as eval_ext_poly_at_ext gives them
+    if not torch.equal(ext.eval_ext_poly_at_ext(chunks, points[0]),
+                       ext.eval_ext_poly_at_ext_plain(chunks, points[0])):
+        raise AssertionError(f"ext_poly_eval {tag}: the chunks alone "
+                             f"differ from the plain version")
+
+    def kern():
+        return ext.open_powers(points, n, chunks)
+
+    call_ms = cuda_ms(kern, 5)
+    plain_ms = cuda_ms(lambda: ext.open_powers_plain(points, n, chunks), 1)
+    dev_ms = device_ms_by_function(kern, ("k_open",))["k_open"]
+    b_ms, b_by = open_bound(n, B, len(points))
+    return dict(
+        max_abs_err=0, ms=dev_ms, wrapper_ms=call_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by,
+        shape=f"{tag}: both points' ({n}, 4) power tables and {B} chunks "
+              f"x {n} at zeta, one launch",
+        # the count before this design's: one table, every ext product
+        # as 18 reduced Montgomery products
+        bound_ms_old_count=bound_ms(4 * (B * n * 4 + B * 4 + n * 4),
+                                    18 * (B * n + n))[0])
+
+
+def check_powers_table(dev, rng, n: int) -> dict:
+    """K11's single-point table (the fused step's, n = 2^20) against its
+    plain version, with its device time and the call's."""
+    from ethrex_tpu_torch.ops import ext
+
+    z = tuple(int(v) for v in rng.integers(0, 2013265921, 4))
+    if not torch.equal(ext.powers_table(z, n, dev),
+                       ext.ext_powers_blocked(z, n, device=dev)):
+        raise AssertionError(f"ext_poly_eval: the ({n}, 4) power table "
+                             f"differs from its plain version")
+
+    def kern():
+        return ext.powers_table(z, n, dev)
+
+    b_ms, b_by = open_bound(n, 0, 1)
+    row = dict(ms=device_ms_by_function(kern, ("k_open",))["k_open"],
+               wrapper_ms=cuda_ms(kern, 5), bound_ms=b_ms, bound_by=b_by,
+               shape=f"({n}, 4) power table of one point")
+    log(f"[kernels] ext_poly_eval, the fused step's table: {row}")
+    return row
 
 
 def check_slice4_kernels(dev, rng) -> dict:
@@ -1149,32 +1218,60 @@ def profile_path(dev, result) -> dict:
                 tables=tables)
 
 
-def check_batched_roots(dev, rng, log_n: int, log_blowup: int = 2,
+# most K10 launches a call of the fused step's forest, by log_n
+# (ceil(log2 of the largest tree / merkle.FOREST_LEVELS))
+K10_LAUNCHES = {20: 3, 15: 2}
+
+
+def check_batched_roots(dev, rng, log_blowup: int = 2,
                         log_final_size: int = 5) -> dict:
-    """K10 on the fused step's FRI layer trees (log_n = 20)."""
+    """K10 on the fused step's FRI layer trees at log_n 20 and 15, held
+    bit-equal to its plain version, its launches a call counted, timed
+    as device time (torch.profiler: the sum of a call's launches, `ms`)
+    and as the call (`wrapper_ms`); the row
+    keeps log_n 20's."""
+    from ethrex_tpu_torch import kernels
     from ethrex_tpu_torch.ops import merkle
 
-    log_N = log_n + log_blowup
-    sizes = tuple(1 << (log_N - 1 - k) for k in range(log_N - log_final_size))
-    d = field(rng, (sum(sizes), 8), dev)
+    shapes = []
+    for log_n in (20, 15):
+        log_N = log_n + log_blowup
+        sizes = tuple(1 << (log_N - 1 - k)
+                      for k in range(log_N - log_final_size))
+        d = field(rng, (sum(sizes), 8), dev)
 
-    def kern():
-        return torch.stack(merkle.batched_roots(d, sizes))
+        def kern():
+            return torch.stack(merkle.batched_roots(d, sizes))
 
-    def plain():
-        return torch.stack(merkle.batched_roots_plain(d, sizes))
-
-    err, ms, pms = compare(f"merkle_batched_level ({len(sizes)} trees)",
-                           kern, plain, plain_reps=1)
-    b_ms, b_by = bound_ms(4 * 8 * (sum(sizes) + len(sizes)),
-                          (sum(sizes) - len(sizes)) * 772)
-    row = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-               bound_by=b_by, shape=f"{len(sizes)} FRI layer trees, "
-                                    f"{sum(sizes)} leaves (fused step, "
-                                    f"log_n {log_n})")
-    log(f"[kernels] merkle_batched_level ok: {row}")
-    del d
-    return row
+        kernels.reset_launches()
+        got = kern()
+        launches = kernels.LAUNCHES["merkle_batched_level"]
+        if launches > K10_LAUNCHES[log_n]:
+            raise AssertionError(f"merkle_batched_level: {launches} "
+                                 f"launches at log_n {log_n}")
+        if not torch.equal(got, torch.stack(
+                merkle.batched_roots_plain(d, sizes))):
+            raise AssertionError(f"merkle_batched_level ({len(sizes)} "
+                                 f"trees, log_n {log_n}): kernel differs "
+                                 f"from its plain version")
+        del got
+        call_ms = cuda_ms(kern, 5)
+        pms = cuda_ms(lambda: torch.stack(
+            merkle.batched_roots_plain(d, sizes)), 1)
+        dev_ms = device_ms_per_call(kern, "k_forest", launches)
+        # the permutations of every tree's levels, the leaves read once
+        # and the roots written once
+        b_ms, b_by = bound_ms(4 * 8 * (sum(sizes) + len(sizes)),
+                              (sum(sizes) - len(sizes)) * 772)
+        shapes.append(dict(
+            max_abs_err=0, ms=dev_ms, wrapper_ms=call_ms, plain_ms=pms,
+            bound_ms=b_ms, bound_by=b_by, launches_per_call=launches,
+            shape=f"{len(sizes)} FRI layer trees, {sum(sizes)} leaves "
+                  f"(fused step, log_n {log_n})"))
+        log(f"[kernels] merkle_batched_level ok: {shapes[-1]}")
+        del d
+    return dict(shapes[0], at_log_n_15=shapes[1],
+                ptxas=kernel_ptxas("poseidon2.cu", ("k_forest",)))
 
 
 def msm_products(bit_rows: np.ndarray, live: np.ndarray) -> int:
@@ -1239,42 +1336,72 @@ def bases_products(n_live: int, fp2: bool) -> int:
             + elements * (3 + 4) * mult + (inverse if n_live else 0))
 
 
+def _profile_events(fn, functions, runs: int) -> dict:
+    """{device function: [its events' device ms]} of the device functions
+    named in `functions` (K5's G2 instances named with <Fp2>, other
+    template instances without their arguments) in `runs` runs of `fn`,
+    the profiler's active step after a warm-up step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            # idle device time first: the profiler drops device events
+            # that it places before a step's start
+            for _ in range(4):
+                torch.cuda._sleep(1 << 20)
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        nm = _short_kernel_name(e.name)
+        if nm.split("<")[0] in functions:
+            out.setdefault(nm, []).append(e.time_range.elapsed_us() / 1e3)
+    return out
+
+
 def device_ms_by_function(fn, functions, runs: int = 5,
                           tries: int = 4) -> dict:
     """Mean device ms of each device function named in `functions` (all
-    of which `fn` launches) in a run of `fn`, from torch.profiler (K5's
-    G2 instances named with <Fp2>, other template instances without
-    their arguments): the mean over the events recorded in `runs` runs,
-    the profiler's active step after a warm-up step.  The card drops
-    device events of a profiler step, the first launches of a function
-    among them, so a step can come back without some of its functions;
-    profiles are taken again, up to `tries` in all, until each function
-    has events, and the mean over them all does not depend on which."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    of which `fn` launches) in a run of `fn`, from torch.profiler: the
+    mean over the events recorded in `runs` runs (`_profile_events`).
+    The card drops device events of a profiler step, the first launches
+    of a function among them, so a step can come back without some of
+    its functions; profiles are taken again, up to `tries` in all, until
+    each function has events, and the mean over them all does not
+    depend on which."""
     total: dict = {}
     count: dict = {}
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(runs):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        for e in prof.events():
-            if e.device_type.name != "CUDA":
-                continue
-            nm = _short_kernel_name(e.name)
-            if nm.split("<")[0] in functions:
-                total[nm] = total.get(nm, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
-                count[nm] = count.get(nm, 0) + 1
+        for nm, ms in _profile_events(fn, functions, runs).items():
+            total[nm] = total.get(nm, 0.0) + sum(ms)
+            count[nm] = count.get(nm, 0) + len(ms)
         if {nm.split("<")[0] for nm in total} >= set(functions):
             break
     return {nm: round(total[nm] / count[nm], 4) for nm in total}
+
+
+def device_ms_per_call(fn, function: str, launches: int, runs: int = 5,
+                       tries: int = 4) -> float:
+    """Device ms of one call of `fn`, which launches `function` `launches`
+    times with unlike lengths (K10's rounds), so a mean over launches
+    would not do: the sum over a profiler step of `runs` calls, over
+    `runs`, from the first of up to `tries` profiles that recorded all
+    runs x launches events; if none did, the mean of the events times
+    `launches`, logged as such."""
+    for _ in range(tries):
+        ms = _profile_events(fn, (function,), runs).get(function, [])
+        if len(ms) == runs * launches:
+            return round(sum(ms) / runs, 4)
+    log(f"[kernels] {function}: the profiler recorded {len(ms)} of "
+        f"{runs * launches} launches; device ms from their mean")
+    return round(sum(ms) / max(1, len(ms)) * launches, 4)
 
 
 def check_msm(dev, pk, z, n_pub) -> dict:
@@ -1786,6 +1913,12 @@ def main_path(dev, rng, keys_future) -> dict:
             f"STARKs' groups: {sum(groups_per_air.values())}), "
             f"air_constraints {launches['air_constraints']} times (0 "
             f"expected)")
+    # each STARK's open phase makes its power tables and its quotient
+    # chunks at zeta in one K11 launch, and nothing else launches K11
+    if launches["ext_poly_eval"] != len(traces):
+        raise AssertionError(f"ext_poly_eval launched "
+                             f"{launches['ext_poly_eval']} times for "
+                             f"{len(traces)} STARKs (one each expected)")
     # the upload of every STARK's trace (state, transfer, token,
     # bytecode, binding, outer) goes through the kernel
     if launches["to_mont_cols"] < len(traces):
@@ -2000,6 +2133,14 @@ def fused_step(dev) -> dict:
         if missing:
             raise AssertionError(f"fused step (log_n {log_n}) did not "
                                  f"launch {missing}")
+        # K10 builds the forest in a few launches, K11 the one table
+        if got["merkle_batched_level"] > K10_LAUNCHES[log_n] or \
+                got["ext_poly_eval"] != 1:
+            raise AssertionError(
+                f"fused step (log_n {log_n}): merkle_batched_level "
+                f"launched {got['merkle_batched_level']} times (at most "
+                f"{K10_LAUNCHES[log_n]}), ext_poly_eval "
+                f"{got['ext_poly_eval']} (1 expected)")
         if cw.shape != (32, 4) or len(roots) != log_n + 2 - 5:
             raise AssertionError("fused step: unexpected output shapes")
         if log_n == 15:
@@ -2092,7 +2233,7 @@ def main() -> int:
         rows.update(check_air_kernels(dev, rng))
         rows.update(check_batch_inv(dev, rng))
         rows.update(check_ext_glue(dev, rng))
-        rows["merkle_batched_level"] = check_batched_roots(dev, rng, 20)
+        rows["merkle_batched_level"] = check_batched_roots(dev, rng)
         rows.update(check_slice4_kernels(dev, rng))
         result = main_path(dev, rng, keys_future)
     fused = fused_step(dev)
@@ -2150,6 +2291,8 @@ def main() -> int:
                if "at_state_shape" in row else {}),
             **{k: row[k] for k in ("wrapper_ms", "bound_ms_double_and_add",
                                    "bound_ms_reduced_products",
+                                   "bound_ms_old_count", "fused_step_table",
+                                   "at_log_n_15",
                                    "bound_ms_unfused", "ptxas",
                                    "launches_per_call", "wrap_device_ms",
                                    "device_ms_by_function") if k in row},
@@ -2181,9 +2324,8 @@ DEVICE_FUNCTIONS = {
     **{f + "<Fp2>": "bn254_msm_bases" for f in K5_BASES_FUNCTIONS},
     "k_deep": "deep_compose",
     "k_quotient": "quotient_combine",
-    "k_batched_level": "merkle_batched_level",
-    "k_table": "ext_poly_eval", "k_eval_partial": "ext_poly_eval",
-    "k_eval_final": "ext_poly_eval", "k_ext_inv": "ext_inv",
+    "k_forest": "merkle_batched_level",
+    "k_open": "ext_poly_eval", "k_ext_inv": "ext_inv",
     "k_ext_batch_inv": "ext_batch_inv", "k_eval_poly_at": "eval_poly_at",
     "k_to_mont_cols": "to_mont_cols"}
 

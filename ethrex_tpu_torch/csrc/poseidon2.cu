@@ -5,10 +5,9 @@
 // :222 `compress` and :232 `hash_leaves`, and the level loop of
 // ethrex_tpu/ops/merkle.py:22-53 (`build_levels_with`/`commit_levels`).
 //
-// K10 (p2_batched_level) is one level of ethrex_tpu/ops/merkle.py:60
-// `batched_roots`: every tree of a concatenated forest that is still above
-// one node compresses its pairs, and finished roots are copied through, in
-// one launch per global level.
+// K10 (p2_forest, `k_forest`) is ethrex_tpu/ops/merkle.py:60
+// `batched_roots`: the roots of a forest of trees concatenated in one
+// digest array, a few levels of every tree a launch (see `k_forest`).
 //
 // Bound on this card: 32-bit integer multiplies.  One permutation is 772
 // Montgomery products (five IMAD issue slots each: see babybear.cuh
@@ -181,14 +180,6 @@ __device__ __forceinline__ void store8(uint32_t* dst, const uint32_t r[8]) {
   o[1] = make_uint4(r[4], r[5], r[6], r[7]);
 }
 
-// two adjacent digests at src (16 words) -> their parent at dst (8 words)
-__device__ __forceinline__ void compress_pair(const uint32_t* __restrict__ pair,
-                                              uint32_t* __restrict__ dst) {
-  uint32_t r[8];
-  compress_regs(pair, pair + 8, r);
-  store8(dst, r);
-}
-
 // k levels of S subtrees per block.  Subtree st (< S) of block b is tree
 // = b S + st, the 2^k digests in[tree 2^k ...] (8 words each), loaded into
 // shared memory; node i of level j then lives in shared slot i 2^j (the
@@ -251,32 +242,93 @@ __global__ void k_subtree(const uint32_t* __restrict__ in,
   }
 }
 
-// One level of a forest.  plan holds, for T trees, out_start[0..T] (the
-// last entry is the level's output count), in_start[0..T) and
-// active[0..T): output row r of tree t (out_start[t] <= r <
-// out_start[t+1]) is the parent of input rows in_start[t] + 2 (r -
-// out_start[t]) and the next one when the tree is active, else a copy of
-// its root at in_start[t].
-__global__ void k_batched_level(const uint32_t* __restrict__ in,
-                                uint32_t* __restrict__ out,
-                                const long long* __restrict__ plan, int T,
-                                long long m) {
-  long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= m) return;
-  int lo = 0, hi = T - 1;  // the last t with out_start[t] <= r
-  while (lo < hi) {
-    int mid = (lo + hi + 1) / 2;
-    if (plan[mid] <= r) lo = mid; else hi = mid - 1;
+// K10.  A launch takes up to FOREST_SEGS segments, each a run of blocks
+// over consecutive digests: block b of a segment takes its tiles [b S,
+// min((b + 1) S, tiles)), each tile 2^k consecutive digests of one tree
+// (several whole trees of one size make one segment), compresses the k
+// levels of every tile in shared memory as k_subtree does (the first c + 1
+// serially per thread, then one node a thread, numbered densely over the
+// block's tiles), and writes only each tile's root, at out row (segment's
+// out + tile).  k = 0 copies a finished root through.  The host plan
+// (ethrex_tpu_torch/ops/merkle.py `forest_plan`) splits each tree's levels
+// evenly over ceil(max log2 size / FOREST_LEVELS) launches and keeps the
+// trees' order in every output, so the last one is the roots in tree
+// order.  The segments are one __grid_constant__ parameter (in the
+// constant bank): no launch uploads a plan.
+//
+// Bound on this card: the permutations ((leaves - trees) x 772 products,
+// as k_subtree's), with the leaves read once and only the roots written.
+constexpr int FOREST_SEGS = 48;
+constexpr int FOREST_THREADS = 128;
+constexpr int FOREST_LEVELS = 10;
+
+struct ForestSeg {
+  long long in, out;            // first input and output row
+  int first_block, tiles, k, S, c;
+};
+
+struct Forest {
+  ForestSeg seg[FOREST_SEGS];
+  int nseg;
+};
+
+__global__ void __launch_bounds__(FOREST_THREADS)
+k_forest(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+         const __grid_constant__ Forest f) {
+  __shared__ uint4 sh4[2 << FOREST_LEVELS];   // 2^10 digests, 32 KB
+  uint32_t* sh = reinterpret_cast<uint32_t*>(sh4);
+  int s = 0;
+  for (int q = 1; q < f.nseg; ++q)
+    if (f.seg[q].first_block <= (int)blockIdx.x) s = q;
+  const ForestSeg& g = f.seg[s];
+  const int b = (int)blockIdx.x - g.first_block;
+  const int k = g.k, c = g.c;
+  const int cnt = min(g.S, g.tiles - b * g.S);   // this block's tiles
+  const long long tile0 = (long long)b * g.S;
+  uint32_t* dst = out + (g.out + tile0) * 8;
+  if (k == 0) {
+    for (int q = threadIdx.x; q < cnt; q += blockDim.x) {
+      const uint4* src = reinterpret_cast<const uint4*>(in + (g.in + tile0 + q) * 8);
+      uint4* o = reinterpret_cast<uint4*>(dst + q * 8);
+      o[0] = src[0];
+      o[1] = src[1];
+    }
+    return;
   }
-  long long off = r - plan[lo];
-  long long src = plan[T + 1 + lo];
-  if (plan[2 * T + 1 + lo]) {
-    compress_pair(in + (src + 2 * off) * 8, out + r * 8);
-  } else {
-    const uint4* s = reinterpret_cast<const uint4*>(in + src * 8);
-    uint4* o = reinterpret_cast<uint4*>(out + r * 8);
-    o[0] = s[0];
-    o[1] = s[1];
+  const uint4* src = reinterpret_cast<const uint4*>(in + ((g.in + (tile0 << k)) * 8));
+  const int words4 = (cnt << k) * 2;
+  for (int i = threadIdx.x; i < words4; i += blockDim.x) sh4[i] = src[i];
+  __syncthreads();
+  const int lgT = k - c - 1;                  // threads a tile, serially
+  for (int j = 1; j <= k; ++j) {
+    const int cnt_log = k - j;                // nodes a tile at level j
+    if (j <= c + 1) {
+      if ((int)threadIdx.x < (cnt << lgT)) {
+        const int st = threadIdx.x >> lgT;
+        const int t = threadIdx.x & ((1 << lgT) - 1);
+        uint32_t* base = sh + (st << k) * 8;
+        const int per = 1 << (c + 1 - j);     // nodes of this thread
+        for (int q = 0; q < per; ++q) {
+          const int i = t * per + q;
+          uint32_t r[8];
+          compress_regs(base + ((2 * i) << (j - 1)) * 8,
+                        base + ((2 * i + 1) << (j - 1)) * 8, r);
+          store8(j == k ? dst + st * 8 : base + (i << j) * 8, r);
+        }
+      }
+    } else {
+      __syncthreads();
+      const int q = threadIdx.x;
+      if (q < (cnt << cnt_log)) {
+        const int st = q >> cnt_log;
+        const int i = q & ((1 << cnt_log) - 1);
+        uint32_t* base = sh + (st << k) * 8;
+        uint32_t r[8];
+        compress_regs(base + ((2 * i) << (j - 1)) * 8,
+                      base + ((2 * i + 1) << (j - 1)) * 8, r);
+        store8(j == k ? dst + st * 8 : base + (i << j) * 8, r);
+      }
+    }
   }
 }
 
@@ -324,14 +376,26 @@ int p2_merkle_subtree(const void* in, void* out, long long m_in, int k,
   return (int)cudaGetLastError();
 }
 
-// K10: in (rows, 8) digests -> out (m, 8) by the plan above
-int p2_batched_level(const void* in, void* out, const void* plan, int trees,
-                     long long m, cudaStream_t stream) {
-  if (m > 0) {
-    k_batched_level<<<(unsigned)((m + 127) / 128), 128, 0, stream>>>(
-        (const uint32_t*)in, (uint32_t*)out, (const long long*)plan, trees,
-        m);
+// K10: one launch of `k_forest` over nseg segments (7 words each, as
+// ForestSeg's fields: in, out, first block, tiles, k, S, c) and `blocks`
+// blocks; in (rows, 8) digests -> out (the segments' output rows, 8)
+int p2_forest(const void* in, void* out, const void* segs, int nseg,
+              int blocks, cudaStream_t stream) {
+  if (nseg < 1 || nseg > FOREST_SEGS || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  Forest f = {};
+  const long long* w = (const long long*)segs;
+  for (int q = 0; q < nseg; ++q, w += 7) {
+    f.seg[q] = ForestSeg{w[0], w[1], (int)w[2], (int)w[3], (int)w[4],
+                         (int)w[5], (int)w[6]};
+    if (f.seg[q].k < 0 || f.seg[q].k > FOREST_LEVELS ||
+        (f.seg[q].k > 0 && (f.seg[q].c < 0 || f.seg[q].c >= f.seg[q].k)) ||
+        (f.seg[q].S << f.seg[q].k) > (1 << FOREST_LEVELS))
+      return (int)cudaErrorInvalidValue;
   }
+  f.nseg = nseg;
+  k_forest<<<(unsigned)blocks, FOREST_THREADS, 0, stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, f);
   return (int)cudaGetLastError();
 }
 

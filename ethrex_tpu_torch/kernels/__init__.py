@@ -178,9 +178,8 @@ _SIGNATURES = {
     "bn254_msm_bytes": [_I, _I, _I],
     "deep_compose": [_P, _P, _P, _P, _P, _I, _P, _L, _I, _I, _I, _P],
     "quotient_combine": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
-    "p2_batched_level": [_P, _P, _P, _I, _L, _P],
-    "ext_powers_table": [_P, _P, _P, _L, _L, _I, _P],
-    "ext_poly_eval": [_P, _L, _L, _L, _P, _P, _I, _L, _I, _I, _P, _P, _P],
+    "p2_forest": [_P, _P, _P, _I, _I, _P],
+    "ext_open": [_P, _I, _P, _L, _L, _P, _L, _L, _L, _I, _P, _P, _P, _P],
     "ext_inv": [_P, _P, _L, _P],
     "ext_batch_inv": [_P, _P, _L, _I, _P],
     "eval_poly_at": [_P, _L, _L, _I, _P, _P, _I, _P, _P],

@@ -10,13 +10,15 @@ tensor only):
   K8  `deep_compose`      the DEEP composition codeword (csrc/deep_compose.cu)
   K9  `quotient_combine`  the quotient's divisor combination
                           (csrc/quotient_combine.cu)
-  K11 `powers_table`, `eval_ext_poly_at_ext`  the power table of a point
-                          and ext polynomials at it (csrc/ext_poly_eval.cu)
+  K11 `open_powers`       the power tables of one or two points and ext
+                          polynomials at the first, in one pass
+                          (csrc/ext_poly_eval.cu); `powers_table` and
+                          `eval_ext_poly_at_ext` are its single-point forms
       `ext_inv_device`, `batch_inv`  inverses, element-wise and batched
                           (csrc/ext_inv.cu; test-only, on no prover path)
 
-Power tables of a single point start from two short host tables (the chain
-of products is short there) and are expanded on the device.
+On the card the power tables are made by the kernel from the points
+alone: the host passes each point's four words and builds no table.
 """
 
 from __future__ import annotations
@@ -141,59 +143,117 @@ def ext_powers_blocked(point, n: int, block: int = 128, device=None):
     return out.reshape(nb * block, DEG)[:n]
 
 
-def _short_tables(point, n: int, device):
-    """(small, big, blk): z^0..z^(blk-1) and (z^blk)^0..(z^blk)^(nb-1),
-    the two host tables that z^i = big[i // blk] * small[i % blk]
-    expands; blk is about sqrt(n), so both stay short."""
-    z = _point_host(point)
-    blk = 1 << max(7, (max(n, 1).bit_length() + 1) // 2)
-    nb = -(-n // blk)
-    return (ext_powers(z, blk, device), ext_powers(h_pow(z, blk), nb, device),
-            blk)
+def _points_mont(points) -> np.ndarray:
+    """Points (canonical host tuples, or (4,) device tensors read back)
+    -> (len, 4) uint32 Montgomery words, as K11 takes them."""
+    z = np.array([_point_host(p) for p in points], dtype=np.uint64)
+    return np.ascontiguousarray(bb.to_mont_host(z), dtype=np.uint32)
+
+
+def _k11(points, n: int, table, chunks, device):
+    """Launch K11 (`ext_open`): the powers of `points` (one or two) into
+    the column blocks of `table` (an (n, 4 x points) int32 view with
+    16-byte aligned rows, or None), and chunks ((rows, n, 4), any
+    strides, or None) at points[0].  Returns the (rows, 4) sums or
+    None."""
+    rows = 0 if chunks is None else chunks.shape[0]
+    out = sums = None
+    if rows:
+        kernels.require_int32_cuda(chunks, "K11 chunks")
+        out = torch.empty((rows, DEG), dtype=bb.I32, device=device)
+        # the 64-bit sums, then the blocks' done counter
+        sums = torch.zeros(DEG * rows + 1, dtype=torch.int64, device=device)
+    if n == 0:
+        return None if out is None else out.zero_()
+    zs = _points_mont(points)
+    kernels.call("ext_open", device, zs.ctypes.data, len(points),
+                 None if table is None else kernels.ptr(table),
+                 0 if table is None else table.stride(0), n,
+                 kernels.ptr(chunks) if rows else None,
+                 *(chunks.stride() if rows else (0, 0, 0)), rows,
+                 kernels.ptr(sums) if rows else None,
+                 kernels.ptr(sums[-1:]) if rows else None,
+                 kernels.ptr(out) if rows else None)
+    kernels.count("ext_poly_eval")
+    return out
+
+
+def open_powers_plain(points, n: int, chunks=None, device=None, out=None):
+    """Plain version of `open_powers`: `ext_powers_blocked` per point and
+    `eval_ext_poly_at_ext_plain`."""
+    if out is not None:
+        device = out.device
+    elif chunks is not None:
+        device = chunks.device
+    table = torch.cat([ext_powers_blocked(p, n, device=device)
+                       for p in points], dim=1)
+    if out is not None:
+        out.copy_(table)
+        table = out
+    sums = None if chunks is None else \
+        eval_ext_poly_at_ext_plain(chunks, points[0])
+    return table, sums
+
+
+def open_powers(points, n: int, chunks=None, device=None, out=None):
+    """The open phase's extension work: the power tables [1, z, ...,
+    z^(n-1)] of one or two points in the column blocks of one (n, 4 x
+    points) table (written into `out` when given: an int32 view whose
+    rows may be strided, such as K3's operand), and, given chunks (B, n,
+    4) (any strides), sum_i chunks[b, i] z_0^i, (B, 4).  Points are
+    canonical host tuples (a (4,) device tensor is read back).  Returns
+    (table, sums or None).  Kernel K11, one launch, on the card; the
+    plain version on the CPU."""
+    if not 1 <= len(points) <= 2:
+        raise ValueError("open_powers takes one or two points")
+    if out is not None:
+        device = out.device
+    elif chunks is not None:
+        device = chunks.device
+    elif device is None:
+        device = "cpu"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return open_powers_plain(points, n, chunks, device, out)
+    if chunks is not None and chunks.shape[-2:] != (n, DEG):
+        raise ValueError(f"chunks must be (B, {n}, 4)")
+    width = DEG * len(points)
+    if out is None:
+        out = torch.empty((n, width), dtype=bb.I32, device=device)
+    elif (out.shape != (n, width) or out.dtype != bb.I32
+          or out.stride(1) != 1 or out.stride(0) % DEG
+          or out.data_ptr() % 16):
+        raise ValueError(f"open_powers: out must be an ({n}, {width}) "
+                         f"int32 view with 16-byte aligned rows")
+    return out, _k11(points, n, out, chunks, device)
 
 
 def powers_table(point, n: int, device=None, out=None):
     """[1, z, ..., z^{n-1}] as an (n, 4) Montgomery tensor on `device`,
     or written into `out`, an (n, 4) int32 view whose rows may be strided
-    (a column slice of a wider table).  Kernel K11 (`ext_powers_table`)
-    on the card; the plain version, `ext_powers_blocked`, on the CPU."""
-    if out is not None:
-        device = out.device
-    elif device is None:
+    (a column slice of a wider table).  Kernel K11 on the card; the plain
+    version, `ext_powers_blocked`, on the CPU."""
+    if out is None and device is None:
         device = point.device if isinstance(point, torch.Tensor) else "cpu"
-    device = torch.device(device)
-    if device.type != "cuda":
-        table = ext_powers_blocked(point, n, device=device)
-        if out is None:
-            return table
-        out.copy_(table)
-        return out
-    if out is None:
-        out = torch.empty((n, DEG), dtype=bb.I32, device=device)
-    elif (out.shape != (n, DEG) or out.dtype != bb.I32 or out.stride(1) != 1
-          or out.stride(0) % DEG or out.data_ptr() % 16):
-        raise ValueError("powers_table: out must be an (n, 4) int32 view "
-                         "with 16-byte aligned rows")
-    small, big, blk = _short_tables(point, n, device)
-    kernels.call("ext_powers_table", device, kernels.ptr(small),
-                 kernels.ptr(big), kernels.ptr(out), out.stride(0), n, blk)
-    kernels.count("ext_poly_eval")
-    return out
+    return open_powers([point], n, device=device, out=out)[0]
 
 
 def eval_base_poly_at_ext(coeffs, *points):
     """Evaluate base-coefficient polys at one or more ext points.
 
     coeffs: (..., n) base Montgomery; each point: (4,) ext Montgomery
-    tensor or canonical tuple.  The points' power tables (kernel K11)
-    fill the column blocks of one (n, 4 x points) table, so one modular
-    matmul (kernel K3) reads coeffs once for all of them.  Returns (...,
-    4) for one point, else a tuple of (..., 4) views, one a point."""
+    tensor or canonical tuple.  The points' power tables (kernel K11,
+    two points a launch) fill the column blocks of one (n, 4 x points)
+    table, so one modular matmul (kernel K3) reads coeffs once for all
+    of them.  Returns (..., 4) for one point, else a tuple of (..., 4)
+    views, one a point."""
     n = coeffs.shape[-1]
     pows = torch.empty((n, DEG * len(points)), dtype=bb.I32,
                        device=coeffs.device)
-    for j, point in enumerate(points):
-        powers_table(point, n, out=pows[:, DEG * j:DEG * (j + 1)])
+    for j in range(0, len(points), 2):
+        group = points[j:j + 2]
+        open_powers(group, n,
+                    out=pows[:, DEG * j:DEG * (j + len(group))])
     res = bb.mod_matmul(coeffs, pows)
     if len(points) == 1:
         return res
@@ -317,15 +377,9 @@ def eval_ext_poly_at_ext_plain(coeffs, point):
     return bb.sum_mod(terms, dim=-2)
 
 
-# threads per block of the K11 reduction, and the least number of
-# coefficients each thread sums
-_EVAL_THREADS = 256
-_EVAL_PER_THREAD = 8
-
-
 def eval_ext_poly_at_ext(coeffs, point):
     """Ext-coefficient polys at an ext point: coeffs (..., n, 4) (any
-    strides) -> (..., 4).  Kernel K11 on a CUDA tensor."""
+    strides) -> (..., 4).  Kernel K11 (no table) on a CUDA tensor."""
     if coeffs.device.type != "cuda":
         return eval_ext_poly_at_ext_plain(coeffs, point)
     kernels.require_int32_cuda(coeffs, "eval_ext_poly_at_ext")
@@ -334,18 +388,9 @@ def eval_ext_poly_at_ext(coeffs, point):
     lead = coeffs.shape[:-2]
     n = coeffs.shape[-2]
     c = coeffs.reshape((-1, n, DEG))    # a view for the prover's chunks
-    rows = c.shape[0]
-    dev = coeffs.device
-    small, big, blk = _short_tables(point, n, dev)
-    G = max(1, min(1024, -(-n // (_EVAL_THREADS * _EVAL_PER_THREAD))))
-    partial = torch.empty((rows, G, DEG), dtype=bb.I32, device=dev)
-    out = torch.empty((rows, DEG), dtype=bb.I32, device=dev)
-    kernels.call("ext_poly_eval", dev, kernels.ptr(c), c.stride(0),
-                 c.stride(1), c.stride(2), kernels.ptr(small),
-                 kernels.ptr(big), blk, n, rows, G,
-                 kernels.ptr(partial), kernels.ptr(out))
-    kernels.count("ext_poly_eval")
-    return out.reshape(lead + (DEG,))
+    if c.shape[0] == 0:
+        return torch.empty(lead + (DEG,), dtype=bb.I32, device=c.device)
+    return _k11([point], n, None, c, c.device).reshape(lead + (DEG,))
 
 
 # ---------------------------------------------------------------------------

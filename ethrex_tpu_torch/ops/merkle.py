@@ -5,13 +5,16 @@ on the device and keeps them all, since the query openings read siblings
 from every level: kernel K2 hashes the leaves into one buffer that holds
 every level, then compresses up to 10 levels per launch
 (`poseidon2.merkle_subtree`, planned by `subtree_plan`).  `batched_roots`
-builds the roots of many trees at once, one launch of kernel K10 per
-global level (the fused prove step's FRI layers).  The host helpers
+builds the roots of many trees at once (the fused prove step's FRI
+layers) with kernel K10, up to 10 levels of every tree a launch
+(planned by `forest_plan`).  The host helpers
 (`compress_ref`, `hash_leaf_ref`, `verify_opening`, ...) are copies of the
 JAX package's canonical-integer reference.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -121,42 +124,91 @@ def batched_roots_plain(digests, sizes) -> list:
     return [state[i] for i in range(len(cur))]
 
 
-def _level_plan(cur: list[int]) -> tuple[np.ndarray, int]:
-    """Kernel K10's plan for one level of trees of sizes `cur`:
-    out_start (T + 1), in_start (T), active (T), as int64."""
-    new = [s // 2 if s > 1 else 1 for s in cur]
-    out_start = np.concatenate([[0], np.cumsum(new)]).astype(np.int64)
-    in_start = np.concatenate([[0], np.cumsum(cur)[:-1]]).astype(np.int64)
-    active = np.array([1 if s > 1 else 0 for s in cur], dtype=np.int64)
-    return np.concatenate([out_start, in_start, active]), int(out_start[-1])
+# K10 (csrc/poseidon2.cu `k_forest`): levels a launch compresses at most
+# (a block's 2^10 digests fill 32 KB of shared memory), threads a block,
+# and the segments one launch's parameter holds.  A round over at least
+# p2.SUBTREE_SERIAL_MIN digests runs its first c + 1 = 3 levels serially
+# per thread, as k_subtree does, so the levels where a block thins out
+# carry 1/8 of its work; a smaller round, where the chain of levels and
+# not the products sets the time, runs one node a thread (c = 0) unless
+# a tile of 2^k digests needs more (c >= k - 8 with 128 threads)
+FOREST_LEVELS = 10
+FOREST_THREADS = 128
+FOREST_SEGS = 48
+
+
+@functools.lru_cache(maxsize=64)
+def forest_plan(sizes: tuple) -> tuple:
+    """Kernel K10's plan for trees of `sizes` (powers of two,
+    concatenated in order): each tree's log2 size levels split as evenly
+    as possible over R = ceil(max log2 size / FOREST_LEVELS) rounds.  A
+    round's output holds each tree's nodes after it, in tree order (one
+    root per tile of 2^k digests; a finished tree's root copied, k = 0),
+    so round R's output is the roots.  Consecutive trees of one size
+    make one segment.  Returns per round (launches, rows out), a launch
+    (segments, blocks) with a segment (in row, out row, first block,
+    tiles, k, S, c) as the kernel reads it: S tiles a block, the first
+    c + 1 levels serially per thread.  A round of more than FOREST_SEGS
+    segments takes several launches."""
+    cur = [int(s) for s in sizes]
+    rem = [s.bit_length() - 1 for s in cur]
+    rounds = -(-max(rem, default=0) // FOREST_LEVELS)
+    plan = []
+    for r in range(rounds):
+        segs, in_off, out_off, prev = [], 0, 0, None
+        serial = p2.SUBTREE_SERIAL if sum(cur) >= p2.SUBTREE_SERIAL_MIN \
+            else 0
+        for t, s in enumerate(cur):
+            k = -(-rem[t] // (rounds - r))
+            tiles = s >> k
+            if s == prev:
+                segs[-1][3] += tiles      # one more whole tree of this size
+            else:
+                c = min(max(serial, k - 8), k - 1) if k else 0
+                cap = FOREST_THREADS << (c + 1) if k else FOREST_THREADS
+                segs.append([in_off, out_off, 0, tiles, k, cap >> k, c])
+            prev = s
+            in_off += s
+            out_off += tiles
+            cur[t], rem[t] = tiles, rem[t] - k
+        launches = []
+        for lo in range(0, len(segs), FOREST_SEGS):
+            blocks = 0
+            for seg in segs[lo:lo + FOREST_SEGS]:
+                seg[5] = min(seg[5], seg[3])
+                seg[2] = blocks
+                blocks += -(-seg[3] // seg[5])
+            launches.append((np.array(segs[lo:lo + FOREST_SEGS],
+                                      dtype=np.int64), blocks))
+        plan.append((tuple(launches), out_off))
+    return tuple(plan)
 
 
 def batched_roots(digests, sizes) -> list:
     """Roots of many Merkle trees from one flat digest array.
 
     digests: (sum(sizes), 8) leaf digests, trees concatenated in order;
-    every size a power of two (a tree of size 1 is its own root).  Each
-    global level is one batched compression over every tree still above
-    one node, finished roots copied through (kernel K10 on a CUDA tensor).
+    every size a power of two (a tree of size 1 is its own root).
+    Kernel K10 on a CUDA tensor: up to FOREST_LEVELS levels of every tree
+    a launch, in shared memory, only the roots written (`forest_plan`).
     Returns a list of (8,) root digests, one per tree."""
     if digests.device.type != "cuda":
         return batched_roots_plain(digests, sizes)
-    cur = _check_sizes(sizes)
+    cur = tuple(_check_sizes(sizes))
     if digests.shape != (sum(cur), DIGEST_WIDTH):
         raise ValueError("digests must be (sum(sizes), 8)")
     kernels.require_int32_cuda(digests, "batched_roots")
     dev = digests.device
     state = digests.contiguous()
     p2._upload_constants(dev)
-    while any(s > 1 for s in cur):
-        plan_np, m = _level_plan(cur)
-        plan = torch.from_numpy(plan_np).to(dev)
-        out = torch.empty((m, DIGEST_WIDTH), dtype=bb.I32, device=dev)
-        kernels.call("p2_batched_level", dev, kernels.ptr(state),
-                     kernels.ptr(out), kernels.ptr(plan), len(cur), m)
-        kernels.count("merkle_batched_level")
+    for launches, rows in forest_plan(cur):
+        out = torch.empty((rows, DIGEST_WIDTH), dtype=bb.I32, device=dev)
+        for segs, blocks in launches:
+            kernels.call("p2_forest", dev, kernels.ptr(state),
+                         kernels.ptr(out), segs.ctypes.data, len(segs),
+                         blocks)
+            kernels.count("merkle_batched_level")
         state = out
-        cur = [s // 2 if s > 1 else 1 for s in cur]
     return [state[i] for i in range(len(cur))]
 
 

@@ -13,7 +13,7 @@ kernels, in the reference's order:
      where comb = LDE rows @ gamma powers
   4. every FRI fold first                                    K4
      then one leaf hash over every layer's paired leaves     K2
-     and every layer's root, level by level                  K10
+     and every layer's root, up to 10 levels a launch      K10
 
 The values equal the reference's jitted step bit for bit.
 """
@@ -63,15 +63,17 @@ def build_prove_step(log_n: int, width: int, log_blowup: int = 2,
         lde_cols = ntt.coset_lde(trace_cols, log_blowup, shift=shift)
         lde_rows = lde_cols.T
         troot = merkle.commit_levels(lde_rows)[-1][0]
-        # 3. sum_w gamma^w (T_w(x) - T_w(zeta)) / (x - zeta)
-        tz = ext.eval_base_poly_at_ext(ntt.intt(trace_cols), zeta)
+        # 3. sum_w gamma^w (T_w(x) - T_w(zeta)) / (x - zeta); zeta comes
+        # to the host once, for K11's table and K8's constants
+        zeta_h = ext.to_host(zeta)
+        tz = ext.eval_base_poly_at_ext(ntt.intt(trace_cols), zeta_h)
         gpow = ext.ext_powers(gamma, width, device)
         comb = bb.mod_matmul(lde_rows, gpow)
         del lde_cols, lde_rows
-        cw = ext.deep_compose(pts_m, [(ext.to_host(zeta), comb, tz, gpow)])
+        cw = ext.deep_compose(pts_m, [(zeta_h, comb, tz, gpow)])
         del comb
         # 4. fold all layers first, then hash every layer's paired leaves
-        # in one call and build all the trees level by level
+        # in one call and build all the trees' roots together
         layer_leaves = []
         for k in range(L):
             half = cw.shape[0] // 2

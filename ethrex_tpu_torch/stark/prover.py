@@ -10,8 +10,8 @@ of `_build_phases`, :458-583).  Pipeline per proof:
                once per shape), divisors and boundary terms (K9), coset
                iNTT and chunk re-evaluation (K1), Merkle (K2)
   3. open      zeta <- transcript; trace and quotient at zeta, zeta*g
-               (K1 iNTT, K11 power tables, K3 at both points in one pass,
-               K11 evaluation)
+               (K1 iNTT; K11: both power tables and the quotient chunks
+               at zeta in one launch; K3 at both points in one pass)
   4. deep      gamma <- transcript; the DEEP composition codeword (K3 at
                both openings' powers in one pass, then K8)
   5. fri       fold (K4) + Merkle (K2) per layer, query openings
@@ -170,11 +170,15 @@ def phase_quotient(air: Air, tb: _Tables, lde_cols, alpha, bound_vals,
 
 
 def phase_open(cols, chunks, zeta, zeta_g):
+    """The trace (w, n) and the quotient chunks (B, n, 4) at zeta and
+    zeta g (canonical host tuples): (t_z, t_zg, q_z)."""
     tcoeffs = ntt.intt(cols)
-    # the trace at both points in one pass over its coefficients (K3)
-    t_z, t_zg = ext.eval_base_poly_at_ext(tcoeffs, zeta, zeta_g)
-    q_z = ext.eval_ext_poly_at_ext(chunks, zeta)
-    return t_z, t_zg, q_z
+    # both points' power tables, in the column blocks of K3's (n, 8)
+    # operand, and the chunks at zeta in one pass (K11); then the trace
+    # at both points in one pass over its coefficients (K3)
+    pows, q_z = ext.open_powers((zeta, zeta_g), tcoeffs.shape[-1], chunks)
+    res = bb.mod_matmul(tcoeffs, pows)
+    return res[..., :4], res[..., 4:], q_z
 
 
 def phase_deep(tb: _Tables, lde_cols, q_lde, t_z, t_zg, q_z, zeta, zeta_g,

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K11 (K6 in both its modes: the constraint block
-and its fused alpha combination; K7 with its divisor entry) and the four
+and its fused alpha combination; K7 with its divisor entry; K11 as the
+open phase calls it and in its single-point forms) and the four
 slice-4 kernels (ext_inv,
 ext_batch_inv, eval_poly_at, to_mont_cols) against their plain PyTorch
 versions on the card, at small and ragged shapes that reach every branch
@@ -509,6 +510,54 @@ def test_ext_poly_eval_kernel_equals_plain(dev, rows, n):
     assert torch.equal(ext.eval_ext_poly_at_ext(c.contiguous(), z), got)
 
 
+@pytest.mark.parametrize("n,B", [(1, 8), (7, 8), (1023, 8), (70001, 8),
+                                 (4099, 16), (3, 9), (5000, 0)])
+def test_open_powers_kernel_equals_plain(dev, n, B):
+    # the open phase's call: both points' tables and the chunks, a (B, n,
+    # 4) view of (B, 4, n) coefficients, at the first point; odd n, more
+    # chunks than a thread keeps (9, 16), and no chunks
+    z = (_ext_point(n), _ext_point(n + 7))
+    chunks = _field(n + B, (B, 4, n), dev).permute(0, 2, 1) if B else None
+    table, sums = ext.open_powers(z, n, chunks)
+    want_t, want_s = ext.open_powers_plain(z, n, chunks)
+    assert torch.equal(table, want_t)
+    if B:
+        assert torch.equal(sums, want_s)
+        assert torch.equal(ext.open_powers(z, n, chunks.contiguous())[1],
+                           want_s)
+    else:
+        assert sums is None
+
+
+def test_open_powers_into_a_column_block(dev):
+    # written into columns 4-11 of a wider table (rows 48 bytes apart),
+    # the columns around them untouched
+    n = 4097
+    z = (_ext_point(1), _ext_point(2))
+    chunks = _field(3, (8, 4, n), dev).permute(0, 2, 1)
+    wide = torch.zeros((n, 12), dtype=torch.int32, device=dev)
+    _, sums = ext.open_powers(z, n, chunks, out=wide[:, 4:])
+    want_t, want_s = ext.open_powers_plain(z, n, chunks)
+    assert torch.equal(wide[:, 4:], want_t) and torch.equal(sums, want_s)
+    assert not wide[:, :4].any()
+    with pytest.raises(ValueError):
+        ext.open_powers(z, n, chunks, out=wide[:, 2:10])
+
+
+def test_phase_open_kernel_equals_cpu(dev):
+    # the prover's open phase on the card against the same on the CPU
+    n, w, B = 1 << 10, 5, 8
+    cols = _field(4, (w, n), dev)
+    chunks = _field(5, (B, 4, n), dev).permute(0, 2, 1)
+    z = _ext_point(6)
+    zg = ext.h_mul(z, ext.h_from_base(bb.root_of_unity(10)))
+    kernels.reset_launches()
+    got = prover.phase_open(cols, chunks, z, zg)
+    assert kernels.LAUNCHES["ext_poly_eval"] == 1
+    want = prover.phase_open(cols.cpu(), chunks.cpu(), z, zg)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("nb", [0, 1, 9])
 def test_quotient_combine_kernel_equals_plain(dev, nb):
     N, B, w = 1 << 12, 8, 5
@@ -587,6 +636,28 @@ def test_batched_roots_kernel_equals_plain(dev, sizes):
     want = merkle.batched_roots_plain(d, sizes)
     assert len(got) == len(sizes)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("sizes", [
+    (1, 1, 1), (2, 1) * 30 + (256,), (1 << 11,) * 3 + (4,),
+    (1, 2, 4, 8, 16, 32, 64, 128) * 7,
+    tuple(1 << (13 - k) for k in range(9))])
+def test_batched_roots_forest_equals_plain(dev, sizes):
+    # trees of size 1, runs of equal sizes (one segment), more segments
+    # than one launch holds, and the fused step's chain of sizes; each in
+    # ceil(max log2 size / 10) rounds
+    from ethrex_tpu_torch.ops import merkle
+
+    d = _field(sum(sizes), (sum(sizes), 8), dev)
+    kernels.reset_launches()
+    got = merkle.batched_roots(d, sizes)
+    want = merkle.batched_roots_plain(d, sizes)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plan = merkle.forest_plan(tuple(sizes))
+    rounds = -(-(max(sizes).bit_length() - 1) // merkle.FOREST_LEVELS)
+    assert len(plan) == rounds
+    assert kernels.LAUNCHES["merkle_batched_level"] == \
+        sum(len(launches) for launches, _ in plan)
 
 
 def test_fused_step_on_the_card_equals_cpu(dev):

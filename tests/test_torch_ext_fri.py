@@ -105,6 +105,40 @@ def test_eval_ext_poly_at_ext_bit_equal():
                jext.eval_ext_poly_at_ext(coeffs, z))
 
 
+@pytest.mark.parametrize("log_n", [0, 3, 10])
+def test_open_powers_and_phase_open_equal_the_reference(log_n):
+    """The open phase's fused entry (`ext.open_powers`, run through its
+    plain version here) and the port's `phase_open` built on it give the
+    reference's t_z, t_zg and q_z (ethrex_tpu/stark/prover.py:560-562):
+    the trace (w, n) and the B quotient chunks, a (B, n, 4) view of (B,
+    4, n) coefficients, at zeta and zeta g."""
+    from ethrex_tpu_torch.stark import prover
+
+    n, w, B = 1 << log_n, 6, 8
+    cols = jbb.to_mont_host(_field(20 + log_n, (w, n)))
+    chunks = np.moveaxis(_field(30 + log_n, (B, 4, n)), 1, 2)  # (B, n, 4)
+    rng = np.random.default_rng(log_n)
+    zeta = tuple(int(v) for v in rng.integers(0, bb.P, 4))
+    zeta_g = ext.h_mul(zeta, ext.h_from_base(bb.root_of_unity(log_n)))
+
+    def zm(z):
+        return jbb.to_mont_host(np.array(z, dtype=np.uint64))
+
+    tcoeffs = jntt.intt(cols)
+    want = (jext.eval_base_poly_at_ext(tcoeffs, zm(zeta)),
+            jext.eval_base_poly_at_ext(tcoeffs, zm(zeta_g)),
+            jext.eval_ext_poly_at_ext(chunks, zm(zeta)))
+    chunks_t = _t(np.ascontiguousarray(np.moveaxis(chunks, 2, 1))
+                  ).permute(0, 2, 1)
+    got = prover.phase_open(_t(cols), chunks_t, zeta, zeta_g)
+    for g, wv in zip(got, want):
+        assert _eq(g, wv)
+    table, sums = ext.open_powers((zeta, zeta_g), n, chunks_t)
+    assert _eq(sums, want[2])
+    assert _eq(table[:, :4], jext.ext_powers_blocked(zm(zeta), n))
+    assert _eq(table[:, 4:], jext.ext_powers_blocked(zm(zeta_g), n))
+
+
 def test_inv_x_minus_zeta_bit_equal():
     x, z = _field(10, (256,)), _field(11, (4,))
     got = ext.inv_x_minus_zeta(_t(x), _t(z))

@@ -1,8 +1,8 @@
 """The index math of kernels K1 (NTT) and K2 (Merkle subtrees), the
 lazy 64-bit sums of K3 (modular matmul) and K6 (the AIR constraints'
-alpha combination), and the batched inversions of K7 (with its divisor
-entry) and K8 (the DEEP codeword, with its lazy sums), rehearsed on the
-CPU.
+alpha combination), the batched inversions of K7 (with its divisor
+entry) and K8 (the DEEP codeword, with its lazy sums), K11's power
+chains and chunk sums and K10's forest plan, rehearsed on the CPU.
 
 The CUDA kernels take their pass plans from the Python wrappers
 (`ntt.ntt_plan`, `ntt.radix_rounds`, the twiddle tables, and
@@ -907,6 +907,279 @@ def test_k8_model_base_field_zeta_on_a_point():
     assert not want[9].any() and want[8].any() and want[10].any()
 
 
+# ---------------------------------------------------------------------------
+# K11: the power tables and the chunk sums of the open phase
+# ---------------------------------------------------------------------------
+#
+# `k_open` (csrc/ext_poly_eval.cu): thread t of S = blocks x THREADS
+# threads takes rows t, t + S, ...; it starts from z^t, the product of
+# the binary powers z^(2^j) over the bits of t, and steps by z^S.  Each
+# row's chunk words add into lazy 64-bit sums (four raw products a
+# coordinate, then a fold), reduced once a thread; a block adds its
+# threads' residues mod p and the blocks add into 64-bit device sums.
+# The model below does the same products in the same order in numpy
+# (`_mad` fails on a wrap of 2^64) for any grid, and is held against
+# `ext_powers_blocked` and `eval_ext_poly_at_ext` of the JAX package.
+
+_K11 = _cu_constants("ext_poly_eval.cu")
+_W_M = np.uint64(bb.to_mont_host(11))
+
+
+def _ext_mul_m(a, b):
+    """`bb::ext_mul` on Montgomery words, a and b (..., 4)."""
+    m = _mont
+    a0, a1, a2, a3 = (a[..., i] for i in range(4))
+    b0, b1, b2, b3 = (b[..., i] for i in range(4))
+    t0 = _add(_add(m(a1, b3), m(a2, b2)), m(a3, b1))
+    t1 = _add(m(a2, b3), m(a3, b2))
+    t2 = m(a3, b3)
+    return np.stack([
+        _add(m(a0, b0), m(t0, _W_M)),
+        _add(_add(m(a0, b1), m(a1, b0)), m(t1, _W_M)),
+        _add(_add(m(a0, b2), m(a1, b1)), _add(m(a2, b0), m(t2, _W_M))),
+        _add(_add(m(a0, b3), m(a1, b2)), _add(m(a2, b1), m(a3, b0)))],
+        axis=-1)
+
+
+def _k11_start(z, S: int):
+    """Each thread's first power z^t (t < S) from the binary powers over
+    t's bits (shift and mask), and the step z^S, as a block makes them."""
+    pw, a = [], z
+    for _ in range(S.bit_length()):
+        pw.append(a)
+        a = _ext_mul_m(a, a)
+    one = np.array([bb.MONT_ONE, 0, 0, 0], dtype=np.uint64)
+    step = one
+    t = np.arange(S)
+    zt = np.tile(one, (S, 1))
+    for j, w in enumerate(pw):
+        if (S >> j) & 1:
+            step = _ext_mul_m(step, w)
+        zt = np.where(((t >> j) & 1)[:, None] == 1, _ext_mul_m(zt, w), zt)
+    return zt, step
+
+
+def model_k_open(zs, n: int, chunks, blocks: int):
+    """`k_open` over `blocks` blocks: zs (NP, 4) Montgomery points, chunks
+    (B, n, 4) Montgomery (B may be 0).  Returns the (n, 4 NP) table and
+    the (B, 4) sums."""
+    T = _K11["THREADS"]
+    S = blocks * T
+    np_ = zs.shape[0]
+    starts = [_k11_start(zs[p], S) for p in range(np_)]
+    z = [st[0] for st in starts]
+    table = np.zeros((n, 4 * np_), dtype=np.uint64)
+    B = chunks.shape[0]
+    acc = [[np.zeros(S, np.uint64) for _ in range(4)] for _ in range(B)]
+    t = np.arange(S)
+    for k in range(-(-n // S)):
+        i = t + k * S
+        ok = i < n
+        for p in range(np_):
+            table[i[ok], 4 * p:4 * p + 4] = z[p][ok]
+        if B:
+            wz = [np.zeros(S, np.uint64)] + [_mont(z[0][:, m], _W_M)
+                                             for m in (1, 2, 3)]
+            zc = [z[0][:, m] for m in range(4)]
+            ic = np.where(ok, i, 0)
+            for b in range(B):
+                cw = [np.where(ok, chunks[b, ic, m], 0) for m in range(4)]
+                new = _k8_ext_mad(cw, zc, wz, acc[b])
+                acc[b] = [np.where(ok, new[m], acc[b][m]) for m in range(4)]
+        more = (i + S < n)[:, None]
+        z = [np.where(more, _ext_mul_m(z[p], starts[p][1]), z[p])
+             for p in range(np_)]
+    sums = np.zeros((B, 4), dtype=np.uint64)
+    for b in range(B):
+        for m in range(4):
+            v = _redc(acc[b][m]).reshape(blocks, T)
+            block = v.sum(axis=1) % P             # a block's mod-p adds
+            total = block.sum()                   # the device's 64-bit sum
+            assert blocks * (int(P) - 1) < 2**64
+            sums[b, m] = total % P
+    return table, sums
+
+
+@pytest.mark.parametrize("n,blocks,B,worst", [
+    (1, 1, 8, False), (_K11["THREADS"] - 1, 1, 8, False),
+    (3 * _K11["THREADS"] + 7, 2, 8, False), (1000, 3, 9, False),
+    (300, 2, 0, False), (2 * _K11["THREADS"] + 5, 1, 16, True)])
+def test_k11_model_equals_jax_powers_and_eval(n, blocks, B, worst):
+    """Rows fewer than a block's threads, n not a multiple of S (a
+    thread's last row past n), n = 1, more chunks than a thread keeps,
+    no chunks, and every chunk word p - 1."""
+    import jax.numpy as jnp
+
+    from ethrex_tpu.ops import ext as jext
+    from ethrex_tpu_torch.ops import ext
+
+    rng = np.random.default_rng(n * 7 + blocks + B)
+    pts = [tuple(int(v) for v in rng.integers(0, bb.P, 4)) for _ in (0, 1)]
+    zs = ext._points_mont(pts).astype(np.uint64)
+    chunks = _field(n + B, (B, n, 4))
+    if worst:
+        chunks[...] = bb.P - 1
+    table, sums = model_k_open(zs, n, chunks.astype(np.uint64), blocks)
+    for p in (0, 1):
+        want = np.asarray(jext.ext_powers_blocked(jnp.asarray(
+            zs[p].astype(np.uint32)), n))
+        np.testing.assert_array_equal(table[:, 4 * p:4 * p + 4], want)
+    if B:
+        want = np.asarray(jext.eval_ext_poly_at_ext(
+            jnp.asarray(chunks), jnp.asarray(zs[0].astype(np.uint32))))
+        np.testing.assert_array_equal(sums, want)
+
+
+@pytest.mark.parametrize("blocks", [1, 132, 264, 1 << 17])
+def test_k11_index_split_covers_every_start(blocks):
+    """A block keeps MAX_BITS binary powers: enough for the bits of any
+    S = blocks x THREADS up to n = 2^25 rows a thread each; the bits of t
+    (shift and mask) give back every t < S, so z^t and the steps of z^S
+    reach every row once."""
+    T = _K11["THREADS"]
+    S = blocks * T
+    assert S.bit_length() <= _K11["MAX_BITS"]
+    t = np.arange(min(S, 1 << 20), dtype=np.int64)
+    back = sum(((t >> j) & 1) << j for j in range(S.bit_length()))
+    assert np.array_equal(back, t)
+    n = 1 << 25
+    rows = np.concatenate([np.arange(s, n, S) for s in (0, S - 1)])
+    assert rows.min() == 0 and len(np.unique(rows)) == len(rows)
+
+
+@pytest.mark.parametrize("B", [8, 16])
+@pytest.mark.parametrize("log_n", [20, 25])
+def test_k11_lazy_sums_worst_case_never_wrap(log_n, B):
+    """Every word p - 1 at n = 2^log_n: the most rows a thread can take (a
+    grid of one block), four raw products (p-1)^2 a row onto each of its
+    4 B sums, each folded after its row; then the reduction (redc needs
+    a sum below p 2^32) and the device sums, one residue a block, for
+    the most blocks any launch has."""
+    T = _K11["THREADS"]
+    n = 1 << log_n
+    q = (bb.P - 1) ** 2
+    acc = 0
+    for _ in range(-(-n // T)):
+        for _ in range(4):
+            acc += q
+            assert acc < 2**64, "64-bit sum wrapped"
+        acc = (acc >> 32) * bb.MONT_ONE + (acc & 0xFFFFFFFF)
+        assert acc < 2**60
+    assert acc < bb.P << 32
+    blocks = -(-n // T) * -(-B // _K11["CHUNKS"])
+    assert blocks * (bb.P - 1) < 2**64
+
+
+# ---------------------------------------------------------------------------
+# K10: the roots of a forest
+# ---------------------------------------------------------------------------
+
+_K10 = _cu_constants("poseidon2.cu")
+
+
+def _forest_rounds(sizes):
+    """Walk `merkle.forest_plan` as `k_forest` reads it, with each row
+    labelled (tree, level, index): every input row of a round read by
+    exactly one tile (2^k nodes of one tree and level, aligned) or copied
+    (k = 0), every output row written once.  Yields per round the input
+    and output labels and the (in row, out row, tiles, k) of every
+    block."""
+    tree = np.repeat(np.arange(len(sizes)), sizes)
+    level = np.zeros(len(tree), np.int64)
+    idx = np.concatenate([np.arange(s) for s in sizes]) if sizes else tree
+    for launches, rows in merkle.forest_plan(tuple(sizes)):
+        seen = np.zeros(len(tree), np.int64)
+        out = [np.full(rows, -1, np.int64) for _ in range(3)]
+        work = []
+        for segs, blocks in launches:
+            nb = 0
+            for i_, o_, first, tiles, k, S, c in segs.tolist():
+                assert first == nb and 1 <= S and (S << k) <= 1 << 10
+                assert k == 0 or (0 <= c < k and
+                                  (S << (k - c - 1)) <= _K10["FOREST_THREADS"])
+                nb += -(-tiles // S)
+                for b in range(-(-tiles // S)):
+                    cnt = min(S, tiles - b * S)
+                    lo = i_ + ((b * S) << k)
+                    r = np.arange(lo, lo + (cnt << k)).reshape(cnt, 1 << k)
+                    seen[r] += 1
+                    for lab in (tree, level):
+                        assert (lab[r] == lab[r[:, :1]]).all()
+                    assert (idx[r] == idx[r[:, :1]] + np.arange(1 << k)).all()
+                    assert (idx[r[:, 0]] % (1 << k) == 0).all()
+                    o = np.arange(o_ + b * S, o_ + b * S + cnt)
+                    assert (out[0][o] == -1).all()
+                    out[0][o] = tree[r[:, 0]]
+                    out[1][o] = level[r[:, 0]] + k
+                    out[2][o] = idx[r[:, 0]] >> k
+                    work.append((lo, o[0], cnt, k))
+            assert nb == blocks
+        assert (seen == 1).all() and (out[0] >= 0).all()
+        yield (tree, level, idx), out, work
+        tree, level, idx = out
+    assert list(tree) == list(range(len(sizes)))
+    assert list(level) == [s.bit_length() - 1 for s in sizes]
+    assert not idx.any()
+
+
+def model_k_forest(digests, sizes):
+    """`k_forest` by `merkle.forest_plan`: each block's tiles compressed
+    level by level (node i of level j from nodes 2i and 2i + 1 of level
+    j - 1, as the kernel pairs its shared slots), only the tiles' roots
+    kept.  Returns the roots in tree order."""
+    state = digests
+    for _, (t, _, _), work in _forest_rounds(tuple(sizes)):
+        out = torch.empty((len(t), 8), dtype=bb.I32)
+        for lo, o, cnt, k in work:
+            x = state[lo:lo + (cnt << k)].reshape(cnt, 1 << k, 8)
+            for _ in range(k):
+                x = p2.compress(x[:, 0::2], x[:, 1::2])
+            out[o:o + cnt] = x[:, 0]
+        state = out
+    return [state[i] for i in range(len(sizes))]
+
+
+_FUSED_CHAIN = {log_n: tuple(1 << (log_n + 1 - k) for k in range(log_n - 3))
+                for log_n in (8, 15, 20)}
+
+
+@pytest.mark.parametrize("sizes", [(1 << a,) for a in range(13)] + [
+    (4, 1, 2), (64, 32, 1, 16, 8, 1), (8, 8, 8, 2, 2, 1, 1), (1, 1, 1),
+    (2, 1) * 30 + (256,), (1 << 12, 1 << 11, 2, 1),
+    _FUSED_CHAIN[15], _FUSED_CHAIN[20]])
+def test_forest_plan_covers_every_node_once(sizes):
+    """Every node of every tree made once, in ceil(max log2 size / 10)
+    rounds (3 at the fused step's log_n 20, 2 at 15), one launch a round
+    unless a round has more than FOREST_SEGS segments."""
+    rounds = list(_forest_rounds(sizes))
+    made = sum(cnt * ((1 << k) - 1) for _, _, work in rounds
+               for _, _, cnt, k in work)
+    assert made == sum(sizes) - len(sizes)
+    assert len(rounds) == -(-(max(sizes).bit_length() - 1)
+                            // merkle.FOREST_LEVELS)
+    launches = sum(len(l) for l, _ in merkle.forest_plan(tuple(sizes)))
+    if len(sizes) < merkle.FOREST_SEGS:
+        assert launches == len(rounds)
+    if sizes == _FUSED_CHAIN[20]:
+        assert launches == 3
+    if sizes == _FUSED_CHAIN[15]:
+        assert launches == 2
+
+
+@pytest.mark.parametrize("sizes", [
+    (1,), (2,), (1 << 11,), (4, 1, 2), (64, 32, 1, 16, 8, 1),
+    (8, 8, 8, 2, 2, 1, 1), (2, 1) * 30 + (16,), _FUSED_CHAIN[8]])
+def test_forest_model_equals_jax_batched_roots(sizes):
+    import jax.numpy as jnp
+
+    d = _field(len(sizes) + sum(sizes), (sum(sizes), 8))
+    want = jmerkle.batched_roots(jnp.asarray(d), sizes)
+    got = model_k_forest(bb.from_numpy(d, "cpu"), sizes)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(bb.to_numpy(g), np.asarray(w))
+
+
 def test_kernel_plan_sizes():
     """The sizes the wrappers and the tests assume are the sources'."""
     from ethrex_tpu_torch.ops import ext
@@ -915,3 +1188,10 @@ def test_kernel_plan_sizes():
     assert ext._DEEP_WORDS == 40 + 8 * _K8_CONST["MAX_NQ"]
     assert _K7_CONST["THREADS"] % 32 == 0
     assert _K7_CONST["THREADS"] // 32 <= 32
+    # K11: warp 0's lanes hold a block's 4 x CHUNKS sums, one each
+    assert _K11["THREADS"] % 32 == 0 and 4 * _K11["CHUNKS"] <= 32
+    # K10: the plan's limits are the kernel's
+    assert (_K10["FOREST_SEGS"], _K10["FOREST_THREADS"],
+            _K10["FOREST_LEVELS"]) == (merkle.FOREST_SEGS,
+                                       merkle.FOREST_THREADS,
+                                       merkle.FOREST_LEVELS)
