@@ -16,19 +16,21 @@ Phases:
      time both with
      CUDA events, beside each kernel's bound: K1 (the coset LDE) and K2
      (the leaf hash and the Merkle tree above it) at every distinct shape
-     of the path (state 115 x 2^19, TransferAir 278 x 2^20, outer 90 x
-     2^22, blowup 8; the plain versions on the first and the last 8 rows
-     or 2^20 leaves beyond the state shape); K3 at every shape of the
+     of the paths (the executed state 115 x 2^21, TransferAir 278 x 2^20,
+     outer 90 x 2^22, blowup 8; and the full-size synthesized batch's
+     state 115 x 2^19, where the rows are timed and the plain versions fit
+     whole; beyond it the plain versions on the first and the last 8
+     rows or 2^20 leaves); K3 at every shape of the
      path (each STARK's deep phase at m = 8, its open phase's split-k at
      m = 8, the fused step's two; the plain version on the first and the
      last 2^20 rows of the deep shapes beyond the state's); K4 at the
-     state proof's shape; K6's alpha combination once per AIR at its full
-     LDE (the plain version of the three largest on the first and the
+     2^19 state proof's shape; K6's alpha combination once per AIR at its
+     full LDE (the plain version of the four largest on the first and the
      last 2^20 or 2^22 points), and its constraint block at 2^16 points;
      K7 on
      the outer divisor stack, and its divisor entry on the outer proof's
-     domain (2^25 points, 11 constants); K8, K9 and K11 at the state and
-     the outer proof's shapes (K11 as the open phase calls it: both
+     domain (2^25 points, 11 constants); K8, K9 and K11 at both state
+     shapes and the outer proof's (K11 as the open phase calls it: both
      points' tables and the chunks at zeta in one launch; also its
      single-point table at the fused step's 2^20); K10 on the fused
      step's FRI layer trees at log_n 20 and 15 (K8, K10 and K11 timed as
@@ -38,26 +40,40 @@ Phases:
      to_mont_cols on the TransferAir trace (2^20 x 278);
   4. the main path, with the launch counts zeroed just before and read
      just after (K6's combine kernels once per constraint group of each
-     STARK, its block form never): `prover.gpu_backend.prove_vm_stages(..., "groth16")` on
-     a VM-mode batch shaped like the reference's BASELINE-3 (1,000
-     transactions over 4 blocks, 500 ETH transfers and 500 token calls,
-     plus one generic call of 1,996 steps): the state proof (1,002
-     touched keys, 1,023 writes: n = 2^19 x 115), TransferAir (2,000
-     segments: n = 2^20 x 278), TokenAir (500 segments: 2^18 x 117),
-     BytecodeAir (2^19 x 354), the VM-mode binding proof, the aggregation
-     of all five into one outer FriVerifyAir STARK (2^22 x 90) and the
-     Groth16 wrap of its digest (BN254 MSMs, K5);
+     STARK, its block form never): `prover.gpu_backend.GpuBackend(
+     device=dev).prove(pi, "groth16")` on the committed BASELINE-3
+     ProgramInput (ethrex_tpu_torch/fixtures: 1,000 transactions over 4
+     blocks, 500 ETH transfers and 500 token calls, with their witness):
+     stateless execution of the blocks, `build_vm_batch` (token mode:
+     2,000 transfer and 500 token segments), the access records (3,504
+     writes, depth 6), the state proof, TransferAir, TokenAir, the
+     binding proof, the aggregation of the four into one outer
+     FriVerifyAir STARK and the Groth16 wrap of its digest (BN254 MSMs,
+     K5), with the host walls of each step and the peak device memory;
+     the output, write-log and VM-meta digests, the tree shape, the mode
+     and the segment counts are held to the reference's
+     (`baseline3_expected.json`).  Then the synthesized VM-mode batch,
+     the only path with a generic call, its counts zeroed just before
+     and read just after: `prover.gpu_backend.prove_vm_stages(...,
+     "groth16")` on BASELINE-3's stream cut to 32 rounds a block (512
+     transfer and 128 token segments), a state tree of 256 keys and 255
+     writes and one generic call of 1,996 steps (BytecodeAir, 2^19 x
+     354), with its binding proof, aggregate and wrap;
   5. the second entry point, `parallel.core.build_prove_step` (the fused
      prove step), at log_n 15 and 20 with width 64, its counts zeroed
      just before each run and read just after; at log_n 15 it equals the
-     same step run with the plain versions on the CPU;
-  6. checks: the port's verifier accepts the five inner proofs and
-     rejects a tampered public input of four; `verify_aggregated` accepts
-     the aggregate and rejects a tampered inner FRI value; `wrap_verify`
-     accepts the wrap and rejects a wrong digest; then every STARK of the
-     main path is proved again from its trace under torch.profiler, its
-     cached tables dropped first so that `tables` runs its device work
-     again: per phase the wall, the device time by kernel and the
+     same step run with the plain versions on the CPU (it needs no wrap
+     keys, so it runs before phase 4, while the keys' setup finishes);
+  6. checks, for each of the two VM-mode paths, in a child process that
+     runs beside the later phases (host Python only; the run waits for
+     both before its result): the port's verifier accepts every inner
+     proof and rejects a tampered public input of each but the binding
+     proof; `verify_aggregated` accepts the aggregate and rejects a
+     tampered inner FRI value; `wrap_verify` accepts the wrap and rejects
+     a wrong digest.  Right after the executed path, every STARK of it is
+     proved again from its trace under torch.profiler,
+     its cached tables dropped first so that `tables` runs its device
+     work again: per phase the wall, the device time by kernel and the
      device's idle share, and per kernel its device time over the path's
      STARKs; K3 and K6 by phase, K7 and PyTorch's own kernels in
      `tables`, and each STARK's peak device memory (the running peak at
@@ -66,8 +82,9 @@ Phases:
      just after: a state proof (cut to 126 keys and 127 writes: n = 2^16
      x 115) and a 512-limb binding proof (64 chunks), then
      `prover.gpu_backend.prove_formats(..., "groth16")` over the two, with
-     the checks of phase 6;
-  8. the main path's wrap proved once more (`wrap_prove` of its digest)
+     the checks of phase 6 (in a child process too);
+  8. the executed path's wrap proved once more (`wrap_prove` of its
+     digest)
      with host timers on its parts (witness, `is_satisfied`, `_h_coeffs`,
      point and scalar conversion, MSM calls, host curve arithmetic), CUDA
      events on K5 and torch.profiler's device time per K5 function; K5
@@ -226,7 +243,11 @@ def compare(name, kern, plain, kernel_reps=5, plain_reps=3):
 # (tag, trace width, log n) of every STARK of the path whose LDE and tree
 # are the largest: the state proof, TransferAir and the outer FriVerifyAir
 # (blowup 8: N = 8n)
-PATH_SHAPES = (("state", 115, 19), ("transfer", 278, 20), ("outer", 90, 22))
+# "state" is the full-size synthesized batch's state proof, the shape
+# every kernel row is timed at (the plain versions fit whole there);
+# "executed state" the executed BASELINE-3 batch's (3,504 writes)
+PATH_SHAPES = (("state", 115, 19), ("executed state", 115, 21),
+               ("transfer", 278, 20), ("outer", 90, 22))
 # rows (of the LDE) and leaves the plain versions are held on beyond the
 # state shape, where the plain versions would not fit in time
 PLAIN_ROWS = 8
@@ -384,7 +405,8 @@ def check_merkle_shapes(dev, rng) -> dict:
 
 # every STARK of the path whose K3 shapes are large: (tag, trace width,
 # log n); blowup 8
-K3_SHAPES = (("state", 115, 19), ("transfer", 278, 20), ("token", 117, 18),
+K3_SHAPES = (("state", 115, 19), ("executed state", 115, 21),
+             ("transfer", 278, 20), ("token", 117, 18),
              ("bytecode", 354, 19), ("outer", 90, 22))
 
 
@@ -541,6 +563,8 @@ def path_airs():
 
     return {"StateUpdateAir": (sua.StateUpdateAir(10, seg_periods=16),
                                1 << 19, None),
+            "StateUpdateAir executed": (sua.StateUpdateAir(6, seg_periods=16),
+                                        1 << 21, 1 << 20),
             "TransferAir": (ta.TransferAir(), 1 << 20, 1 << 20),
             "TokenAir": (tka.TokenAir(), 1 << 18, None),
             "BytecodeAir": (bca.BytecodeAir(), 1 << 19, 1 << 20),
@@ -754,7 +778,9 @@ def check_batch_inv(dev, rng) -> dict:
 
 # the shapes K8, K9 and K11 see on the path: (name, w, n, boundaries) of
 # the state proof and of the outer proof (blowup 8)
-GLUE_SHAPES = (("state", 115, 1 << 19, 24), ("outer", 90, 1 << 22, 10))
+GLUE_SHAPES = (("state", 115, 1 << 19, 24),
+               ("executed state", 115, 1 << 21, 24),
+               ("outer", 90, 1 << 22, 10))
 
 
 def deep_bound(N: int, B: int, openings: int) -> tuple[float, str]:
@@ -842,7 +868,8 @@ def check_ext_glue(dev, rng) -> dict:
         torch.cuda.empty_cache()
     out = {}
     for name, rs in rows.items():
-        out[name] = dict(rs[-1], at_state_shape=rs[0])
+        out[name] = dict(rs[-1], at_state_shape=rs[0],
+                         at_executed_state_shape=rs[1])
     out["deep_compose"]["ptxas"] = kernel_ptxas("deep_compose.cu",
                                                 ("k_deep",))
     out["ext_poly_eval"]["ptxas"] = kernel_ptxas("ext_poly_eval.cu",
@@ -1829,32 +1856,163 @@ def vm_batch(rng, blocks: int = 4, per_block: int = 125):
     return VmBatch([], segs, tok_segs, [], [BcCall(steps, snaps)])
 
 
-def main_path(dev, rng, keys_future) -> dict:
-    """The VM-mode groth16 batch through `gpu_backend.prove_vm_stages`."""
-    from ethrex_tpu_torch import kernels
-    from ethrex_tpu_torch.prover import gpu_backend
+def install_wrap_keys(keys_future):
+    """The wrap keys come from the child (host setup); the wraps need
+    them.  Returns them."""
     from ethrex_tpu_torch.prover import groth16_wrap
 
-    params = gpu_backend.PARAMS
-    t0 = time.perf_counter()
-    tree, r_pre, records, depth = state_batch(rng, num_keys=1002,
-                                              num_writes=1023)
-    batch = vm_batch(rng)
-    encoded = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
-    log(f"[main] batch synthesized in {time.perf_counter() - t0:.1f} s: "
-        f"{len(records)} state writes (depth {depth}), {len(batch.segs)} "
-        f"transfer segments, {len(batch.tok_segs)} token segments, one "
-        f"generic call of {len(batch.bc_calls[0].steps)} steps")
-
-    # the wrap keys come from the child (host setup); the wrap needs them
     t0 = time.perf_counter()
     keys, keys_s = keys_future.result()
     groth16_wrap.use_keys(keys)
-    log(f"[main] wrap_keys host setup {keys_s:.1f} s in the child "
+    log(f"[keys] wrap_keys host setup {keys_s:.1f} s in the child "
         f"(waited {time.perf_counter() - t0:.1f} s): "
         f"{len(keys[0].constraints)} constraints, {keys[0].num_vars} "
         f"variables, domain {keys[2].domain_size}")
+    return keys
 
+
+def log_stark_walls(tag, stats, names) -> tuple[float, float]:
+    """Each STARK's host walls and phases, the aggregation's and the
+    wrap's; returns (inner proofs' seconds, aggregate's seconds)."""
+    inner_s = 0.0
+    for name in names:
+        st = stats[name]
+        inner_s += st["pub_s"] + st["trace_s"] + st["total_s"]
+        log(f"[{tag}] {name} proof: trace {st['n']} x {st['width']} (N = "
+            f"{st['N']}, {st['num_constraints']} constraints), host public "
+            f"inputs {st['pub_s']:.1f} s, host trace generation "
+            f"{st['trace_s']:.1f} s, proof {st['total_s']:.3f} s, phases "
+            f"(s) {json.dumps(st['phase_s'])}")
+    agg_stats = stats["aggregate"]
+    outer = agg_stats["outer"]
+    log(f"[{tag}] outer FriVerifyAir: {agg_stats['items']} items, trace "
+        f"{agg_stats['trace_shape']} (N = {outer['N']}, "
+        f"{outer['num_constraints']} constraints), host trace generation "
+        f"{agg_stats['trace_s']:.1f} s")
+    log(f"[{tag}] outer proof phases (s): {json.dumps(outer['phase_s'])} "
+        f"total {outer['total_s']:.3f}")
+    agg_s = agg_stats["trace_s"] + outer["total_s"]
+    log(f"[{tag}] inner proofs with their host public inputs and traces "
+        f"{inner_s:.3f} s; aggregate {agg_s:.3f} s; wrap "
+        f"{stats['wrap_s']:.3f} s")
+    return inner_s, agg_s
+
+
+def check_path_launches(tag, launches, traces, tables: int) -> None:
+    """Every kernel outside NOT_ON_GROTH16_PATHS launched on the path; the
+    wrap's K5 calls; K6's combine kernels once per constraint group of
+    each STARK and never its block form; one K11 launch per STARK; the
+    upload of every STARK's trace through to_mont_cols."""
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in NOT_ON_GROTH16_PATHS
+               and not (k == "bn254_msm_bases" and tables == 0)]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {tag}: "
+                             f"{missing}")
+    check_wrap_msms(tag, launches, tables=tables)
+    from ethrex_tpu_torch.stark import air_codegen
+
+    groups_per_air = {name: len(air_codegen.groups(air_codegen.record(air)))
+                      for name, (air, _, _) in traces.items()}
+    log(f"[{tag}] air_combine launches per STARK (its constraint groups): "
+        f"{json.dumps(groups_per_air)}")
+    if launches["air_combine"] != sum(groups_per_air.values()) or \
+            launches["air_constraints"]:
+        raise AssertionError(
+            f"{tag}: air_combine launched {launches['air_combine']} times "
+            f"(the STARKs' groups: {sum(groups_per_air.values())}), "
+            f"air_constraints {launches['air_constraints']} times (0 "
+            f"expected)")
+    # each STARK's open phase makes its power tables and its quotient
+    # chunks at zeta in one K11 launch, and nothing else launches K11
+    if launches["ext_poly_eval"] != len(traces):
+        raise AssertionError(f"{tag}: ext_poly_eval launched "
+                             f"{launches['ext_poly_eval']} times for "
+                             f"{len(traces)} STARKs (one each expected)")
+    if launches["to_mont_cols"] < len(traces):
+        raise AssertionError(f"{tag}: to_mont_cols launched "
+                             f"{launches['to_mont_cols']}"
+                             f" times for {len(traces)} STARKs")
+
+
+def executed_path(dev) -> dict:
+    """The main path: the committed BASELINE-3 ProgramInput (1,000
+    transactions over 4 blocks) through `GpuBackend(device=dev).prove(pi,
+    "groth16")`, which executes it, builds its VM batch and access
+    records, proves the state, TransferAir, TokenAir and binding STARKs,
+    aggregates them and wraps the aggregate.  Its results are held to the
+    reference's (`fixtures.expected`): the output, write-log and VM-meta
+    digests, the tree depth, seg_periods, the mode and the segment
+    counts."""
+    from ethrex_tpu_torch import fixtures, kernels
+    from ethrex_tpu_torch.prover import gpu_backend
+
+    t0 = time.perf_counter()
+    pi = fixtures.load_program_input("baseline3")
+    want = fixtures.expected("baseline3")
+    log(f"[executed] BASELINE-3 ProgramInput loaded in "
+        f"{time.perf_counter() - t0:.2f} s: {len(pi.blocks)} blocks, "
+        f"{sum(len(b.body.transactions) for b in pi.blocks)} transactions, "
+        f"{len(pi.witness.nodes)} witness nodes")
+    backend = gpu_backend.GpuBackend(device=dev)
+    stats: dict = {}
+    traces: dict = {}
+    artifacts: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t_path = time.perf_counter()
+    proof = backend.prove(pi, "groth16", stats=stats, traces=traces,
+                          artifacts=artifacts)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[executed] host walls: execute {stats['execute_s']:.3f} s, "
+        f"build_vm_batch {stats['build_vm_batch_s']:.3f} s, access "
+        f"records {stats['records_s']:.3f} s; mode {stats['mode']}")
+    names = [n for n in ("state", "transfer", "token", "binding")
+             if n in stats]
+    log_stark_walls("executed", stats, names)
+    log(f"[executed] whole executed groth16 path {path_s:.3f} s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; launches "
+        f"{json.dumps(launches)}")
+    got = fixtures.proof_summary(proof)
+    wrong = {k: (got.get(k), want[k]) for k in got if got[k] != want[k]}
+    if wrong or got["mode"] != "token" or set(proof) != {
+            "backend", "format", "output", "write_log", "depth",
+            "seg_periods", "state_proof", "proof", "vm", "vm_proof",
+            "tok_proof", "aggregate", "groth16"}:
+        raise AssertionError(f"executed path: results differ from the "
+                             f"reference's: {wrong}, keys {sorted(proof)}")
+    log(f"[executed] output, write-log and VM-meta digests, depth "
+        f"{got['depth']}, seg_periods {got['seg_periods']}, mode "
+        f"{got['mode']} and segments {json.dumps(got['segments'])} equal "
+        f"the reference's (baseline3_expected.json)")
+    check_path_launches("executed path", launches, traces, tables=4)
+    return dict(launches=launches, airs=artifacts["airs"], out=proof,
+                proofs=artifacts["proofs"], main_s=path_s, peak_bytes=peak,
+                params=gpu_backend.PARAMS, stats=stats, traces=traces)
+
+
+def main_path(dev, rng) -> dict:
+    """The synthesized VM-mode groth16 batch through
+    `gpu_backend.prove_vm_stages`, the only path with a generic call (and
+    so BytecodeAir): BASELINE-3's stream cut to 32 rounds a block, a
+    state tree of 256 keys and 255 writes, and the generic call."""
+    from ethrex_tpu_torch import kernels
+    from ethrex_tpu_torch.prover import gpu_backend
+
+    params = gpu_backend.PARAMS
+    t0 = time.perf_counter()
+    tree, r_pre, records, depth = state_batch(rng, num_keys=256,
+                                              num_writes=255)
+    batch = vm_batch(rng, per_block=32)
+    encoded = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    log(f"[vm] batch synthesized in {time.perf_counter() - t0:.1f} s: "
+        f"{len(records)} state writes (depth {depth}), {len(batch.segs)} "
+        f"transfer segments, {len(batch.tok_segs)} token segments, one "
+        f"generic call of {len(batch.bc_calls[0].steps)} steps")
     stats: dict = {}
     traces: dict = {}
     torch.cuda.synchronize()
@@ -1868,68 +2026,15 @@ def main_path(dev, rng, keys_future) -> dict:
     main_s = time.perf_counter() - t_main
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    inner_s = 0.0
-    for name in ("state", "transfer", "token", "bytecode0", "binding"):
-        st = stats[name]
-        inner_s += st["pub_s"] + st["trace_s"] + st["total_s"]
-        log(f"[main] {name} proof: trace {st['n']} x {st['width']} (N = "
-            f"{st['N']}, {st['num_constraints']} constraints), host public "
-            f"inputs {st['pub_s']:.1f} s, host trace generation "
-            f"{st['trace_s']:.1f} s, proof {st['total_s']:.3f} s, phases "
-            f"(s) {json.dumps(st['phase_s'])}")
-    agg_stats = stats["aggregate"]
-    outer = agg_stats["outer"]
-    log(f"[main] outer FriVerifyAir: {agg_stats['items']} items, trace "
-        f"{agg_stats['trace_shape']} (N = {outer['N']}, "
-        f"{outer['num_constraints']} constraints), host trace generation "
-        f"{agg_stats['trace_s']:.1f} s")
-    log(f"[main] outer proof phases (s): {json.dumps(outer['phase_s'])} "
-        f"total {outer['total_s']:.3f}")
-    agg_s = agg_stats["trace_s"] + outer["total_s"]
-    log(f"[main] inner proofs with their host public inputs and traces "
-        f"{inner_s:.3f} s; "
-        f"aggregate {agg_s:.3f} s; wrap "
-        f"{main_s - inner_s - agg_s:.3f} s")
-    log(f"[main] whole VM-mode groth16 path {main_s:.3f} s; peak device "
-        f"memory {peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
-    missing = [k for k, v in launches.items()
-               if v <= 0 and k not in NOT_ON_GROTH16_PATHS]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    check_wrap_msms("main path", launches, tables=4)
-    # the quotient of every STARK goes through K6's combine kernels, one
-    # launch per constraint group, and never through the (K, N) block
-    from ethrex_tpu_torch.stark import air_codegen
-
-    groups_per_air = {name: len(air_codegen.groups(air_codegen.record(air)))
-                      for name, (air, _, _) in traces.items()}
-    log(f"[main] air_combine launches per STARK (its constraint groups): "
-        f"{json.dumps(groups_per_air)}")
-    if launches["air_combine"] != sum(groups_per_air.values()) or \
-            launches["air_constraints"]:
-        raise AssertionError(
-            f"air_combine launched {launches['air_combine']} times (the "
-            f"STARKs' groups: {sum(groups_per_air.values())}), "
-            f"air_constraints {launches['air_constraints']} times (0 "
-            f"expected)")
-    # each STARK's open phase makes its power tables and its quotient
-    # chunks at zeta in one K11 launch, and nothing else launches K11
-    if launches["ext_poly_eval"] != len(traces):
-        raise AssertionError(f"ext_poly_eval launched "
-                             f"{launches['ext_poly_eval']} times for "
-                             f"{len(traces)} STARKs (one each expected)")
-    # the upload of every STARK's trace (state, transfer, token,
-    # bytecode, binding, outer) goes through the kernel
-    if launches["to_mont_cols"] < len(traces):
-        raise AssertionError(f"to_mont_cols launched "
-                             f"{launches['to_mont_cols']}"
-                             f" times for {len(traces)} STARKs")
+    log_stark_walls("vm", stats, ("state", "transfer", "token", "bytecode0",
+                                  "binding"))
+    log(f"[vm] whole synthesized VM-mode groth16 path {main_s:.3f} s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; launches "
+        f"{json.dumps(launches)}")
+    # the executed path's wrap, the process's first, built the tables
+    check_path_launches("synthesized VM path", launches, traces, tables=0)
     return dict(launches=launches, airs=airs, out=out, proofs=proofs,
-                main_s=main_s, peak_bytes=peak, params=params, stats=stats,
-                traces=traces)
-
-
+                main_s=main_s, peak_bytes=peak, params=params, stats=stats)
 def check_wrap_msms(tag, launches, tables: int) -> None:
     """A groth16 path's wrap runs three G1 MSMs and one G2 MSM, each one
     K5 call, and builds `tables` tables of bases: the four point tables
@@ -2009,22 +2114,43 @@ def check_formats(tag, airs, inners, aggregate_out, groth16_json, params,
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def check_main_path(result) -> None:
-    """The verifiers accept what the main path made and reject tampers."""
+def check_path_job(tag, airs, proofs, out, params, keys) -> None:
+    """Runs in a child: `check_path` on a groth16 path's results (host
+    Python only, so it runs beside the card's later phases), with the
+    wrap keys the parent proved with."""
+    from ethrex_tpu_torch.prover import groth16_wrap
+
+    torch.set_num_threads(1)
+    groth16_wrap.use_keys(keys)
+    check_path(tag, dict(airs=airs, proofs=proofs, out=out, params=params))
+
+
+def check_path(tag, result) -> None:
+    """The verifiers accept what a groth16 path made and reject tampers:
+    every inner proof (a tampered public input of each but the binding
+    proof), the aggregate (a tampered FRI value of the first VM proof,
+    else of the state proof) and the wrap."""
     params = result["params"]
     out = result["out"]
+    inners = [out["state_proof"], out["proof"]]
+    names = ["state", "binding"]
+    for key, name in (("vm_proof", "transfer"), ("tok_proof", "token")):
+        if key in out:
+            inners.append(out[key])
+            names.append(name)
+    inners += out.get("bc_proofs", [])
+    names += ["bytecode"] * len(out.get("bc_proofs", []))
     t0 = time.perf_counter()
-    check_inner(["state", "binding", "transfer", "token", "bytecode"],
-                result["airs"], result["proofs"], params,
-                tamper=("state", "transfer", "token", "bytecode"))
-    log(f"[check] the five inner proofs verified, tampered public inputs "
-        f"of the state, transfer, token and bytecode proofs rejected "
+    tamper = [n for n in names if n != "binding"]
+    check_inner(names, result["airs"], result["proofs"], params,
+                tamper=tamper)
+    log(f"[check] {tag}: the {len(names)} inner proofs verified, tampered "
+        f"public inputs of the {', '.join(tamper)} proofs rejected "
         f"({time.perf_counter() - t0:.1f} s)")
     # the aggregate carries them path-stripped, under the reference's keys
-    inners = [out["state_proof"], out["proof"], out["vm_proof"],
-              out["tok_proof"]] + out["bc_proofs"]
-    check_formats("VM path", result["airs"], inners, out["aggregate"],
-                  out["groth16"], params, tamper_at=2)
+    check_formats(tag, result["airs"], inners, out["aggregate"],
+                  out["groth16"], params,
+                  tamper_at=2 if len(inners) > 2 else 0)
 
 
 def two_proof_path(dev, rng) -> dict:
@@ -2076,15 +2202,12 @@ def two_proof_path(dev, rng) -> dict:
         raise AssertionError(f"kernels not launched on the two-proof path: "
                              f"{missing}")
     check_wrap_msms("two-proof path", launches, tables=0)
-    t0 = time.perf_counter()
-    check_inner(["state", "binding"], [st_air, bd_air], [st_proof, bd_proof],
-                params, tamper=("state",))
-    log(f"[check] two-proof path: both inner proofs verified, tampered "
-        f"state public input rejected ({time.perf_counter() - t0:.1f} s)")
-    check_formats("two-proof path", [st_air, bd_air], formats["inner"],
-                  formats["aggregate"], formats["groth16"], params,
-                  tamper_at=0)
-    return dict(launches=launches, path_s=path_s, peak_bytes=peak)
+    # the batch-proof keys that `check_path` reads
+    out = dict(formats, state_proof=formats["inner"][0],
+               proof=formats["inner"][1])
+    return dict(launches=launches, path_s=path_s, peak_bytes=peak,
+                airs=[st_air, bd_air], proofs=[st_proof, bd_proof], out=out,
+                params=params)
 
 
 def small_cross_check(dev, rng) -> None:
@@ -2223,8 +2346,10 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
 
+    # children: the wrap keys' host setup, then the host verification of
+    # the two VM-mode paths, each beside the card's later phases
     with concurrent.futures.ProcessPoolExecutor(
-            max_workers=1,
+            max_workers=2,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         keys_future = pool.submit(wrap_keys_job)
         build_all()
@@ -2235,28 +2360,61 @@ def main() -> int:
         rows.update(check_ext_glue(dev, rng))
         rows["merkle_batched_level"] = check_batched_roots(dev, rng)
         rows.update(check_slice4_kernels(dev, rng))
-        result = main_path(dev, rng, keys_future)
-    fused = fused_step(dev)
-    check_main_path(result)
-    prof = profile_path(dev, result)
-    del result["traces"]
-    two = two_proof_path(dev, rng)
-    from ethrex_tpu_torch.prover import groth16_wrap
+        log(f"[phase] build and kernel checks done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        # the fused step needs no wrap keys: it runs while they finish
+        fused = fused_step(dev)
+        log(f"[phase] fused step done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        keys = install_wrap_keys(keys_future)
+        executed = executed_path(dev)
+        log(f"[phase] executed path done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        prof = profile_path(dev, executed)
+        del executed["traces"]
+        log(f"[phase] profile done at {time.perf_counter() - t_start:.1f} s")
+        checks = [pool.submit(check_path_job, "executed path",
+                              executed["airs"], executed["proofs"],
+                              executed["out"], executed["params"], keys)]
+        result = main_path(dev, rng)
+        log(f"[phase] synthesized VM path done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        checks.append(pool.submit(check_path_job, "synthesized VM path",
+                                  result["airs"], result["proofs"],
+                                  result["out"], result["params"], keys))
+        two = two_proof_path(dev, rng)
+        checks.append(pool.submit(check_path_job, "two-proof path",
+                                  two["airs"], two["proofs"], two["out"],
+                                  two["params"], keys))
+        log(f"[phase] two-proof path done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        from ethrex_tpu_torch.prover import groth16_wrap
 
-    r1cs, layout, pk, _vk = groth16_wrap.wrap_keys()
-    digest = [int(v) for v in result["out"]["aggregate"]["outer"][
-        "pub_inputs"]]
-    wraps = profile_wrap(dev, digest)
-    z = groth16_wrap.wrap_witness(digest, r1cs, layout)
-    rows.update(check_msm(dev, pk, (r1cs, z), 1 + r1cs.num_pub))
-    # the main path's wrap was its process's first: it built the tables
-    wrap = wraps["first"]
-    for name, kind in (("bn254_msm_g1", "g1"), ("bn254_msm_g2", "g2"),
-                       ("bn254_msm_bases", "bases")):
-        rows[name]["launches_per_call"] = wrap["launches_per_call"][kind]
-        rows[name]["wrap_device_ms"] = {
-            k: w["k5_ms"][kind] for k, w in wraps.items()}
-    small_cross_check(dev, rng)
+        r1cs, layout, pk, _vk = groth16_wrap.wrap_keys()
+        digest = [int(v) for v in executed["out"]["aggregate"]["outer"][
+            "pub_inputs"]]
+        wraps = profile_wrap(dev, digest)
+        log(f"[phase] wrap profile done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        z = groth16_wrap.wrap_witness(digest, r1cs, layout)
+        rows.update(check_msm(dev, pk, (r1cs, z), 1 + r1cs.num_pub))
+        log(f"[phase] K5 checks done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        # the executed path's wrap was its process's first: it built the
+        # tables
+        wrap = wraps["first"]
+        for name, kind in (("bn254_msm_g1", "g1"), ("bn254_msm_g2", "g2"),
+                           ("bn254_msm_bases", "bases")):
+            rows[name]["launches_per_call"] = wrap["launches_per_call"][kind]
+            rows[name]["wrap_device_ms"] = {
+                k: w["k5_ms"][kind] for k, w in wraps.items()}
+        small_cross_check(dev, rng)
+        t0 = time.perf_counter()
+        for f in checks:
+            f.result()
+        log(f"[phase] the paths' host checks done at "
+            f"{time.perf_counter() - t_start:.1f} s (waited "
+            f"{time.perf_counter() - t0:.1f} s)")
     log(f"[end] smoke wall {time.perf_counter() - t_start:.1f} s")
 
     path_ms: dict = {}
@@ -2269,6 +2427,7 @@ def main() -> int:
     out = []
     for name, src in kernels.KERNELS.items():
         row = rows[name]
+        exe_n = executed["launches"][name]
         vm_n = result["launches"][name]
         fused_n = fused["launches"].get(name, 0)
         two_n = two["launches"][name]
@@ -2276,8 +2435,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"ethrex_tpu_torch/{src}",
             "replaces": REPLACES[name],
-            "launches": vm_n + fused_n + two_n,
-            "launches_by_path": {"vm_groth16": vm_n, "fused_step": fused_n,
+            "launches": exe_n + vm_n + fused_n + two_n,
+            "launches_by_path": {"executed_groth16": exe_n,
+                                 "vm_groth16": vm_n, "fused_step": fused_n,
                                  "two_proof_groth16": two_n},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -2287,8 +2447,9 @@ def main() -> int:
             **({"at_shapes": row["at_shapes"]} if "at_shapes" in row
                else {}),
             **({"per_air": row["per_air"]} if "per_air" in row else {}),
-            **({"at_state_shape": row["at_state_shape"]}
-               if "at_state_shape" in row else {}),
+            **({k: row[k] for k in ("at_state_shape",
+                                    "at_executed_state_shape")
+                if k in row}),
             **{k: row[k] for k in ("wrapper_ms", "bound_ms_double_and_add",
                                    "bound_ms_reduced_products",
                                    "bound_ms_old_count", "fused_step_table",

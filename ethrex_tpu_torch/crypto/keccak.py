@@ -1,10 +1,14 @@
-"""Keccak-256 over numpy uint64 lanes, one message or a batch at once.
+"""Keccak-256: a batched numpy form and a single-message Python form.
 
 The challenger's proof-of-work grinding hashes tens of thousands of
 40-byte messages (seed || nonce); `keccak256_batch` runs Keccak-f[1600] on
 a whole batch of equal-length messages in numpy, so the search needs no
-native extension.  Original Keccak padding (0x01 ... 0x80), rate 136
-bytes: the Ethereum keccak256, not SHA3-256.
+native extension.  The trie and the EVM hash one short message at a time,
+tens of thousands of times a batch, where numpy's per-call overhead would
+dominate: `keccak256` is the reference's pure-Python Keccak over Python
+integers (`ethrex_tpu/crypto/keccak.py _keccak256_py`).  Original Keccak
+padding (0x01 ... 0x80), rate 136 bytes: the Ethereum keccak256, not
+SHA3-256.
 """
 
 from __future__ import annotations
@@ -75,6 +79,51 @@ def keccak256_batch(msgs: np.ndarray) -> np.ndarray:
     return out.view(np.uint8).reshape(nb, 32)
 
 
+# ---------------------------------------------------------------------------
+# Single message over Python integers (from the Keccak spec)
+# ---------------------------------------------------------------------------
+
+_RC_INT = [int(v) for v in _RC]
+# rho offsets and pi lane order along the (1, 0) lane's orbit
+_RHO = [1, 3, 6, 10, 15, 21, 28, 36, 45, 55, 2, 14,
+        27, 41, 56, 8, 25, 43, 62, 18, 39, 61, 20, 44]
+_PILN = [10, 7, 11, 17, 18, 3, 5, 16, 8, 21, 24, 4,
+         15, 23, 19, 13, 12, 2, 20, 14, 22, 9, 6, 1]
+_M = (1 << 64) - 1
+
+
+def _f1600(st: list) -> None:
+    for rc in _RC_INT:
+        bc = [st[i] ^ st[i + 5] ^ st[i + 10] ^ st[i + 15] ^ st[i + 20]
+              for i in range(5)]
+        for i in range(5):
+            b = bc[(i + 1) % 5]
+            t = bc[(i + 4) % 5] ^ (((b << 1) | (b >> 63)) & _M)
+            for j in range(0, 25, 5):
+                st[j + i] ^= t
+        t = st[1]
+        for i in range(24):
+            j = _PILN[i]
+            r = _RHO[i]
+            st[j], t = ((t << r) | (t >> (64 - r))) & _M, st[j]
+        for j in range(0, 25, 5):
+            row = st[j:j + 5]
+            for i in range(5):
+                st[j + i] = row[i] ^ ((~row[(i + 1) % 5])
+                                      & row[(i + 2) % 5]) & _M
+        st[0] ^= rc
+
+
 def keccak256(data: bytes) -> bytes:
-    arr = np.frombuffer(bytes(data), dtype=np.uint8).reshape(1, -1)
-    return keccak256_batch(arr)[0].tobytes()
+    """One message -> its 32-byte digest."""
+    data = bytes(data)
+    st = [0] * 25
+    pad_len = _RATE - (len(data) % _RATE)
+    padded = data + b"\x01" + b"\x00" * (pad_len - 2) + b"\x80" \
+        if pad_len >= 2 else data + b"\x81"
+    for off in range(0, len(padded), _RATE):
+        for i in range(_RATE // 8):
+            st[i] ^= int.from_bytes(padded[off + 8 * i:off + 8 * i + 8],
+                                    "little")
+        _f1600(st)
+    return b"".join(st[i].to_bytes(8, "little") for i in range(4))

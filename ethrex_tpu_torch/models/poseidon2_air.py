@@ -335,53 +335,19 @@ _INT_RC_INT = [int(c) for c in p2.INT_RC]
 _MU_INT = [int(m) for m in p2.DIAG_MU]
 
 
-def _m4_py(a, b, c, d):
-    t0 = a + b
-    t1 = c + d
-    t2 = 2 * b + t1
-    t3 = 2 * d + t0
-    t4 = 4 * t1 + t3
-    t5 = 4 * t0 + t2
-    return t3 + t5, t5, t2 + t4, t4
-
-
-def _ext_linear_py(s):
-    """M_E on 16 ints (any size; reduced mod p on the way out)."""
-    b0 = _m4_py(s[0], s[1], s[2], s[3])
-    b1 = _m4_py(s[4], s[5], s[6], s[7])
-    b2 = _m4_py(s[8], s[9], s[10], s[11])
-    b3 = _m4_py(s[12], s[13], s[14], s[15])
-    sums = [b0[j] + b1[j] + b2[j] + b3[j] for j in range(4)]
-    p = _P
-    return [(b[j] + sums[j]) % p for b in (b0, b1, b2, b3) for j in range(4)]
-
-
-def _sbox_py(x):
-    p = _P
-    x2 = x * x % p
-    x4 = x2 * x2 % p
-    return x4 * x2 % p * x % p
-
-
 def perm_rows_py(state) -> list:
     """The 22 round states of Poseidon2 on canonical ints (rows 0..21 of
     poseidon2_air.generate_trace); row 21 is the permutation's output."""
-    p = _P
-    s = _ext_linear_py(state)
+    s = p2._ext_linear_int([int(v) for v in state])
     rows = [s]
     for r in range(p2._HALF_F):
-        rc = _EXT_RC_INT[r]
-        s = _ext_linear_py([_sbox_py((s[i] + rc[i]) % p) for i in range(16)])
+        s = p2._ext_linear_int(p2._full_round_int(s, _EXT_RC_INT[r]))
         rows.append(s)
     for r in range(p2.ROUNDS_P):
-        s = list(s)
-        s[0] = _sbox_py((s[0] + _INT_RC_INT[r]) % p)
-        tot = sum(s)
-        s = [(tot + m * x) % p for x, m in zip(s, _MU_INT)]
+        s = p2._partial_round_int(list(s), _INT_RC_INT[r])
         rows.append(s)
     for r in range(p2._HALF_F, p2.ROUNDS_F):
-        rc = _EXT_RC_INT[r]
-        s = _ext_linear_py([_sbox_py((s[i] + rc[i]) % p) for i in range(16)])
+        s = p2._ext_linear_int(p2._full_round_int(s, _EXT_RC_INT[r]))
         rows.append(s)
     return rows
 

@@ -58,7 +58,8 @@ from ..ops import poseidon2 as p2
 from ..stark.air import Air
 from ..stark.state_tree import AccessRecord
 from .poseidon2_air import (PERIOD, ROUNDS, Poseidon2Air,
-                            _external_linear_generic, generate_trace)
+                            _external_linear_generic, pad_rows,
+                            perm_rows_np)
 
 # column offsets
 O_STATE, N_STATE, L_STATE = 0, 16, 32
@@ -299,6 +300,57 @@ def log_digest(accesses: list[AccessRecord], seg_periods: int = 16,
     return state[:8]
 
 
+# The reference builds the trace period by period in Python (three
+# Poseidon2 round traces per 32-row period).  Here lanes O and N, which
+# restart on every segment, run for all segments at once in numpy (one
+# batched permutation per period index); lane L, the running log sponge,
+# is one sequential chain of permutations in plain Python ints, and its
+# round rows are then filled in one batch.  The registers (digests,
+# sibling, bit, current root) follow from the lanes' handoffs.  The array
+# is the reference's.
+
+def _leaf_lane(view, col: int, inp, chunks, sibs, bits, depth: int):
+    """Run lane O or N for every segment at once: rows into view (K, S,
+    32, WIDTH); returns {period j: (digest, sibling, bit)} loaded by the
+    handoff after period j (2 <= j <= 2 + depth)."""
+    S = view.shape[1]
+    loads = {}
+    for j in range(S):
+        rows = perm_rows_np(inp)                          # (K, 22, 16)
+        view[:, j, :, col:col + 16] = pad_rows(rows)
+        end = rows[:, ROUNDS]
+        if j == S - 1:
+            break
+        if j < 2:                 # leaf sponge absorbs chunks 1, 2
+            nxt = end.copy()
+            nxt[:, :8] = (end[:, :8] + chunks[:, j + 1]) % bb.P
+        elif j <= 2 + depth:      # leaf digest, then compress folds
+            dig = end[:, :8] if j == 2 else (end[:, :8] + inp[:, :8]) % bb.P
+            lvl = min(j - 2, depth - 1)
+            sib, bit = sibs[:, lvl], bits[:, lvl]
+            nxt = np.where(bit[:, None] != 0,
+                           np.concatenate([sib, dig], axis=1),
+                           np.concatenate([dig, sib], axis=1))
+            loads[j] = (dig, sib, bit)
+        else:
+            nxt = end
+        inp = nxt
+    return loads
+
+
+def _registers(first, loads: dict, S: int):
+    """(K, S, w) register values by period: `first` (K, w) during the
+    periods before a segment's first load, the last load after."""
+    K = first.shape[0]
+    reg = np.empty((K, S) + first.shape[1:], dtype=np.uint64)
+    cur = first
+    for j in range(S):
+        reg[:, j] = cur
+        if j in loads:
+            cur = loads[j]
+    return reg
+
+
 def generate_state_update_trace(accesses: list[AccessRecord],
                                 initial_root: list[int], depth: int,
                                 seg_periods: int = 16,
@@ -309,96 +361,80 @@ def generate_state_update_trace(accesses: list[AccessRecord],
         segments = segment_count(len(accesses))
     if segments <= len(accesses):
         raise ValueError("need at least one inert tail segment")
-    S = seg_periods
-    n = segments * S * PERIOD
-    tr = np.zeros((n, WIDTH), dtype=np.uint32)
+    S, K, A = seg_periods, segments, len(accesses)
+    if S < depth + 4:
+        raise ValueError("seg_periods too short for the path folds")
+    tr = np.zeros((K * S * PERIOD, WIDTH), dtype=np.uint32)
+    view = tr.reshape(K, S, PERIOD, WIDTH)
 
-    # lane inputs for the upcoming period (generate_trace applies M_E)
-    lane_in = {"O": None, "N": None, "L": [0] * 16}
-    # registers carried across rows (updated only at handoffs)
-    dig = {"O": [0] * 8, "N": [0] * 8}
-    sib_reg, bit_reg = [0] * 8, 0
-    cur_root = [int(v) % bb.P for v in initial_root]
-    zero33 = [0] * MSG_LIMBS
+    limbs = np.zeros((K, MSG_LIMBS), dtype=np.uint64)
+    sibs = np.zeros((K, depth, 8), dtype=np.uint64)
+    bits = np.zeros((K, depth), dtype=np.uint64)
+    for k, rec in enumerate(accesses):
+        limbs[k] = [int(v) % bb.P for v in rec.msg_limbs()]
+        sibs[k] = [[int(v) for v in sib] for sib in rec.siblings]
+        bits[k] = [int(b) for b in rec.bits]
+    zeros2 = np.zeros((K, 2), dtype=np.uint64)
+    key = limbs[:, :11]
+    fresh = np.zeros((K, 16), dtype=np.uint64)
+    fresh[:, :8] = limbs[:, :8]
 
-    for k in range(segments):
-        active = 1 if k < len(accesses) else 0
-        rec = accesses[k] if active else None
-        limbs = rec.msg_limbs() if active else zero33
-        key11, old11, new11 = limbs[:11], limbs[11:22], limbs[22:33]
-        chunks = {
-            "O": _leaf_chunks(key11, old11),
-            "N": _leaf_chunks(key11, new11),
-            "L": _pad40(limbs),
-        }
-        sibs = rec.siblings if active else [[0] * 8] * depth
-        bits = rec.bits if active else [0] * depth
-        seg0 = k * S * PERIOD
-        if k == 0:
-            for name in lane_in:
-                lane_in[name] = [limbs[i] % bb.P if i < 8 else 0
-                                 for i in range(16)]
+    # lanes O and N: each segment's leaf sponge and path folds
+    loads = {}
+    for name, col, val in (("O", O_STATE, limbs[:, 11:22]),
+                           ("N", N_STATE, limbs[:, 22:33])):
+        chunks = np.concatenate([key, val, zeros2], axis=1).reshape(K, 3, 8)
+        loads[name] = _leaf_lane(view, col, fresh, chunks, sibs, bits,
+                                 depth)
+    last = 2 + depth              # the last load of a segment
+
+    def carried(values):
+        """A register's value entering each segment: the previous
+        segment's last load (zero before the first)."""
+        out = np.zeros_like(values)
+        out[1:] = values[:-1]
+        return out
+
+    for name, col in (("O", DIG_OLD), ("N", DIG_NEW)):
+        digs = {j: d for j, (d, _, _) in loads[name].items()}
+        view[:, :, :, col:col + 8] = _registers(
+            carried(digs[last]), digs, S)[:, :, None, :]
+    sib_loads = {j: s for j, (_, s, _) in loads["N"].items()}
+    view[:, :, :, SIB:SIB + 8] = _registers(
+        carried(sib_loads[last]), sib_loads, S)[:, :, None, :]
+    bit_loads = {j: b[:, None] for j, (_, _, b) in loads["N"].items()}
+    view[:, :, :, BIT] = _registers(
+        carried(bit_loads[last]), bit_loads, S)[:, :, None, 0]
+
+    # cur_root: r_pre, then the new-lane root of each active segment
+    roots = np.empty((K, 8), dtype=np.uint64)
+    roots[0] = [int(v) % bb.P for v in initial_root]
+    final_new = loads["N"][last][0]
+    for k in range(1, K):
+        roots[k] = final_new[k - 1] if k - 1 < A else roots[k - 1]
+    view[:, :, :, CUR_ROOT:CUR_ROOT + 8] = roots[:, None, None, :]
+    view[:, :, :, MSG:MSG + MSG_LIMBS] = limbs[:, None, None, :]
+    view[:A, :, :, ACTIVE] = 1
+
+    # lane L: the log sponge, one chain over every period of the trace
+    chunks_l = np.concatenate(
+        [limbs, np.zeros((K, 40 - MSG_LIMBS), dtype=np.uint64)],
+        axis=1).reshape(K, 5, 8).tolist()
+    limb_rows = limbs[:, :8].tolist()
+    inputs = np.empty((K, S, 16), dtype=np.uint64)
+    state = limb_rows[0] + [0] * 8
+    for k in range(K):
         for j in range(S):
-            base = seg0 + j * PERIOD
-            rows_slice = slice(base, base + PERIOD)
-            # registers DURING period j (set by the handoff into it)
-            tr[rows_slice, DIG_OLD:DIG_OLD + 8] = dig["O"]
-            tr[rows_slice, DIG_NEW:DIG_NEW + 8] = dig["N"]
-            tr[rows_slice, SIB:SIB + 8] = sib_reg
-            tr[rows_slice, BIT] = bit_reg
-            tr[rows_slice, CUR_ROOT:CUR_ROOT + 8] = cur_root
-            tr[rows_slice, MSG:MSG + MSG_LIMBS] = \
-                [v % bb.P for v in limbs]
-            tr[rows_slice, ACTIVE] = active
-            ends = {}
-            for name, col in (("O", O_STATE), ("N", N_STATE),
-                              ("L", L_STATE)):
-                rows = generate_trace(lane_in[name])
-                tr[rows_slice, col:col + 16] = rows
-                ends[name] = [int(v) for v in rows[ROUNDS]]
-            # --- handoffs into period j+1 -------------------------------
-            if j == S - 1:
-                break  # segment-end handoff handled after the loop
-            lane_in["L"] = list(ends["L"])
+            inputs[k, j] = state
+            state = p2.permute_ref(state)
             if j < 4:
-                lane_in["L"] = [
-                    (lane_in["L"][i] + chunks["L"][j + 1][i]) % bb.P
-                    if i < 8 else lane_in["L"][i] for i in range(16)]
-            for name in ("O", "N"):
-                end = ends[name]
-                if j < 2:        # leaf sponge absorbs chunks 1, 2
-                    lane_in[name] = [
-                        (end[i] + chunks[name][j + 1][i]) % bb.P
-                        if i < 8 else end[i] for i in range(16)]
-                elif j == 2 or 3 <= j <= 2 + depth:
-                    if j == 2:   # leaf digest ready
-                        dig[name] = end[:8]
-                    else:        # fold: compress feed-forward
-                        inp = lane_in[name]
-                        dig[name] = [(end[i] + inp[i]) % bb.P
-                                     for i in range(8)]
-                    # load the next compression input
-                    lvl = j - 2 if j - 2 < depth else depth - 1
-                    if name == "N":  # update shared path registers once
-                        sib_reg = list(sibs[lvl])
-                        bit_reg = bits[lvl]
-                    d, s, b = dig[name], sibs[lvl], bits[lvl]
-                    lane_in[name] = (list(s) + list(d)) if b \
-                        else (list(d) + list(s))
-                else:
-                    lane_in[name] = list(end)
-        # --- segment-end handoff ---------------------------------------
-        if active:
-            cur_root = list(dig["N"])
-        if k + 1 < segments:
-            nxt_limbs = (accesses[k + 1].msg_limbs()
-                         if k + 1 < len(accesses) else zero33)
-            for name in ("O", "N"):
-                lane_in[name] = [nxt_limbs[i] % bb.P if i < 8 else 0
-                                 for i in range(16)]
-            endL = ends["L"]
-            lane_in["L"] = [(endL[i] + (nxt_limbs[i] % bb.P)) % bb.P
-                            if i < 8 else endL[i] for i in range(16)]
+                state = [(state[i] + chunks_l[k][j + 1][i]) % bb.P
+                         if i < 8 else state[i] for i in range(16)]
+        if k + 1 < K:
+            state = [(state[i] + limb_rows[k + 1][i]) % bb.P if i < 8
+                     else state[i] for i in range(16)]
+    view[:, :, :, L_STATE:L_STATE + 16] = pad_rows(
+        perm_rows_np(inputs.reshape(K * S, 16))).reshape(K, S, PERIOD, 16)
     return tr
 
 

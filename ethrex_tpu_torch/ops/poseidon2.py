@@ -112,22 +112,66 @@ _INT_RC_INT = [int(c) for c in INT_RC]
 _MU_INT = [int(m) for m in DIAG_MU]
 
 
+def _ext_linear_int(s):
+    """M_E on 16 Python ints of any size, reduced mod p on the way
+    out."""
+    p = bb.P
+    t = []
+    for i in (0, 4, 8, 12):
+        x0, x1, x2, x3 = s[i], s[i + 1], s[i + 2], s[i + 3]
+        t0 = x0 + x1
+        t1 = x2 + x3
+        t2 = x1 + x1 + t1
+        t3 = x3 + x3 + t0
+        t4 = 4 * t1 + t3
+        t5 = 4 * t0 + t2
+        t += (t3 + t5, t5, t2 + t4, t4)
+    s0 = t[0] + t[4] + t[8] + t[12]
+    s1 = t[1] + t[5] + t[9] + t[13]
+    s2 = t[2] + t[6] + t[10] + t[14]
+    s3 = t[3] + t[7] + t[11] + t[15]
+    return [(t[0] + s0) % p, (t[1] + s1) % p, (t[2] + s2) % p,
+            (t[3] + s3) % p, (t[4] + s0) % p, (t[5] + s1) % p,
+            (t[6] + s2) % p, (t[7] + s3) % p, (t[8] + s0) % p,
+            (t[9] + s1) % p, (t[10] + s2) % p, (t[11] + s3) % p,
+            (t[12] + s0) % p, (t[13] + s1) % p, (t[14] + s2) % p,
+            (t[15] + s3) % p]
+
+
+def _full_round_int(s, rc):
+    """A full round's S-boxes on canonical ints: (x + c)^7 mod p, the
+    sum x + c left unreduced (below 2p)."""
+    p = bb.P
+    out = []
+    for x, c in zip(s, rc):
+        x += c
+        x2 = x * x % p
+        out.append(x2 * x2 % p * x2 * x % p)
+    return out
+
+
+def _partial_round_int(s, rc):
+    """A partial round on canonical ints: the S-box on s[0] (in place),
+    then the internal diagonal layer."""
+    p = bb.P
+    x = s[0] + rc
+    x2 = x * x % p
+    s[0] = x2 * x2 % p * x2 * x % p
+    tot = sum(s)
+    return [(tot + m * x) % p for x, m in zip(s, _MU_INT)]
+
+
 def permute_ref(state):
     """Reference Poseidon2 on a length-16 list/array of canonical ints."""
-    p = bb.P
-    s = [int(x) % p for x in state]
+    s = [int(x) % bb.P for x in state]
     assert len(s) == WIDTH
-    s = _external_linear_ref(s)
+    s = _ext_linear_int(s)
     for r in range(_HALF_F):
-        s = [_sbox_ref((x + c) % p) for x, c in zip(s, _EXT_RC_INT[r])]
-        s = _external_linear_ref(s)
+        s = _ext_linear_int(_full_round_int(s, _EXT_RC_INT[r]))
     for r in range(ROUNDS_P):
-        s[0] = _sbox_ref((s[0] + _INT_RC_INT[r]) % p)
-        tot = sum(s) % p
-        s = [(tot + m * x) % p for x, m in zip(s, _MU_INT)]
+        s = _partial_round_int(s, _INT_RC_INT[r])
     for r in range(_HALF_F, ROUNDS_F):
-        s = [_sbox_ref((x + c) % p) for x, c in zip(s, _EXT_RC_INT[r])]
-        s = _external_linear_ref(s)
+        s = _ext_linear_int(_full_round_int(s, _EXT_RC_INT[r]))
     return s
 
 
@@ -135,56 +179,58 @@ def permute_ref(state):
 # Plain PyTorch implementation: batched states, Montgomery form
 # ---------------------------------------------------------------------------
 
+# The plain permutation runs its rounds on canonical residues in int64
+# (a product of two residues stays below 2^62, so one reduction a product
+# and one a linear layer), converting from and back to Montgomery form
+# once; the residues, and so the Montgomery words returned, are the same.
+
 def _sbox(x):
-    x2 = bb.mont_sqr(x)
-    x4 = bb.mont_sqr(x2)
-    return bb.mont_mul(bb.mont_mul(x4, x2), x)
-
-
-def _dbl(x):
-    return bb.add(x, x)
-
-
-def _m4(x0, x1, x2, x3):
-    t0 = bb.add(x0, x1)
-    t1 = bb.add(x2, x3)
-    t2 = bb.add(_dbl(x1), t1)
-    t3 = bb.add(_dbl(x3), t0)
-    t4 = bb.add(_dbl(_dbl(t1)), t3)
-    t5 = bb.add(_dbl(_dbl(t0)), t2)
-    t6 = bb.add(t3, t5)
-    t7 = bb.add(t2, t4)
-    return t6, t5, t7, t4
+    """x^7 mod p on canonical int64 residues."""
+    x2 = x * x % bb.P
+    x4 = x2 * x2 % bb.P
+    return x4 * x2 % bb.P * x % bb.P
 
 
 def _external_linear(s):
-    """s: (..., 16) -> (..., 16): M4 on each block of 4, plus the block
-    sums (the circulant 2*M4, M4, ... layout)."""
-    x = s.reshape(s.shape[:-1] + (4, 4))
-    b = torch.stack(_m4(x[..., 0], x[..., 1], x[..., 2], x[..., 3]), dim=-1)
-    tot = bb.sum_mod(b, dim=-2)                                 # (..., 4)
-    return bb.add(b, tot.unsqueeze(-2)).reshape(s.shape)
+    """s: (..., 16) canonical int64 -> (..., 16): M4 on each block of 4,
+    plus the block sums (the circulant 2*M4, M4, ... layout)."""
+    x0, x1, x2, x3 = s.reshape(s.shape[:-1] + (4, 4)).unbind(-1)
+    t0 = x0 + x1
+    t1 = x2 + x3
+    t2 = 2 * x1 + t1
+    t3 = 2 * x3 + t0
+    t4 = 4 * t1 + t3
+    t5 = 4 * t0 + t2
+    b = torch.stack((t3 + t5, t5, t2 + t4, t4), dim=-1)
+    return ((b + b.sum(dim=-2, keepdim=True)) % bb.P).reshape(s.shape)
+
+
+_CONSTS: dict = {}
 
 
 def _consts(device):
-    return (bb.from_numpy(EXT_RC_M, device), bb.from_numpy(INT_RC_M, device),
-            bb.from_numpy(DIAG_MU_M, device))
+    """The round constants and the internal diagonal, canonical int64."""
+    key = str(device)
+    if key not in _CONSTS:
+        _CONSTS[key] = tuple(
+            torch.from_numpy(np.asarray(c, dtype=np.int64)).to(device)
+            for c in (EXT_RC, INT_RC, DIAG_MU))
+    return _CONSTS[key]
 
 
 def permute(state):
     """Poseidon2 permutation. state: (..., 16) int32 Montgomery."""
     ext_rc, int_rc, mu = _consts(state.device)
-    s = _external_linear(state)
+    s = _external_linear(bb.from_mont(state).to(torch.int64))
     for r in range(_HALF_F):
-        s = _external_linear(_sbox(bb.add(s, ext_rc[r])))
+        s = _external_linear(_sbox((s + ext_rc[r]) % bb.P))
     for r in range(ROUNDS_P):
-        s0 = _sbox(bb.add(s[..., :1], int_rc[r]))
+        s0 = _sbox((s[..., :1] + int_rc[r]) % bb.P)
         s = torch.cat([s0, s[..., 1:]], dim=-1)
-        tot = bb.sum_mod(s, dim=-1).unsqueeze(-1)
-        s = bb.add(tot, bb.mont_mul(s, mu))
+        s = (s.sum(dim=-1, keepdim=True) + s * mu) % bb.P
     for r in range(_HALF_F, ROUNDS_F):
-        s = _external_linear(_sbox(bb.add(s, ext_rc[r])))
-    return s
+        s = _external_linear(_sbox((s + ext_rc[r]) % bb.P))
+    return bb.to_mont(s.to(bb.I32))
 
 
 def compress(left, right):

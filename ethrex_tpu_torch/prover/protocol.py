@@ -1,9 +1,12 @@
-"""Proof-format names of the prover protocol.
+"""Backend and proof-format names of the prover protocol.
 
-The constants of `ethrex_tpu/prover/protocol.py` that the port's
-`gpu_backend.prove_formats` needs; the values are the wire strings, so a
-batch proof made by the port names its format as the reference's does.
+The constants of `ethrex_tpu/prover/protocol.py` that the port's backends
+need; the values are the wire strings, so a batch proof made by the port
+names its backend and format as the reference's does.
 """
+
+PROVER_EXEC = "exec"
+PROVER_TPU = "tpu"   # the STARK prover's wire name, whatever its device
 
 FORMAT_STARK = "stark"            # the batch STARKs as-is
 FORMAT_COMPRESSED = "compressed"  # + recursion: FRI query work aggregated

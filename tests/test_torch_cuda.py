@@ -6,7 +6,9 @@ ext_batch_inv, eval_poly_at, to_mont_cols) against their plain PyTorch
 versions on the card, at small and ragged shapes that reach every branch
 of the NTT's pass plan and the Merkle subtree plan (chip_smoke.py covers
 the full-size ones); a small aggregate proof, a small VM-mode batch's stage proofs and
-the fused prove step made on the card against the same made on the CPU.
+the fused prove step made on the card against the same made on the CPU,
+and `GpuBackend` proving a committed ProgramInput on the card against
+the same proof made on the CPU.
 
 Bar: bit-equality (torch.equal); all arithmetic is exact.  K5 (the BN254
 MSM) sums in another order than its plain double-and-add, so its Jacobian
@@ -721,3 +723,30 @@ def test_small_vm_stages_on_the_card_equal_cpu(dev):
     on_cpu, _, _ = gpu_backend.prove_vm_stages(*args, device="cpu",
                                               params=params)
     assert on_card == on_cpu
+
+
+def test_gpu_backend_on_the_card_equals_cpu():
+    """`GpuBackend()` (the card by default) proves the committed mixed
+    batch (one block of two ETH transfers and two token calls) from its
+    ProgramInput, through its kernels, equal to the same proof made with
+    the plain versions on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA is absent (torch.cuda.is_available() is False): "
+                    "GpuBackend proves on the card only")
+    import json
+
+    from ethrex_tpu_torch import fixtures
+    from ethrex_tpu_torch.prover.gpu_backend import GpuBackend
+
+    kernels.lib()
+    kernels.reset_launches()
+    on_card = GpuBackend().prove(fixtures.load_program_input("mixed"),
+                                 "stark")
+    for name in ("ntt", "air_combine", "deep_compose", "ext_poly_eval",
+                 "to_mont_cols", "poseidon2_merkle_subtree", "fri_fold"):
+        assert kernels.LAUNCHES[name] > 0, name
+    on_cpu = GpuBackend(device="cpu").prove(
+        fixtures.load_program_input("mixed"), "stark")
+    assert on_card["vm"]["mode"] == "token"
+    assert json.dumps(on_card, sort_keys=True) == json.dumps(
+        on_cpu, sort_keys=True)
