@@ -40,19 +40,30 @@ Phases:
      to_mont_cols on the TransferAir trace (2^20 x 278);
   4. the main path, with the launch counts zeroed just before and read
      just after (K6's combine kernels once per constraint group of each
-     STARK, its block form never): `prover.gpu_backend.GpuBackend(
-     device=dev).prove(pi, "groth16")` on the committed BASELINE-3
-     ProgramInput (ethrex_tpu_torch/fixtures: 1,000 transactions over 4
-     blocks, 500 ETH transfers and 500 token calls, with their witness):
-     stateless execution of the blocks, `build_vm_batch` (token mode:
+     STARK, its block form never): a minimal proof coordinator started
+     here on 127.0.0.1 (the port's wire framing, the reference's bytes)
+     hands the committed BASELINE-3 ProgramInput (ethrex_tpu_torch/
+     fixtures: 1,000 transactions over 4 blocks, 500 ETH transfers and
+     500 token calls, with their witness) at groth16 to the port's
+     `prover.client.ProverClient(backend, [(host, port)]).poll_once()`
+     (its pre-warm done, heartbeats on, ETHREX_PROOF_CKPT_OFF=1), which
+     proves it through `GpuBackend(device=dev).prove` and submits it; the
+     coordinator checks `verify_submission` and `check_coverage` against
+     the committer's `expected_vm_mode` (mode `token`, classified in a
+     child) before its ACK, and the round's wall is logged beside the
+     prove's.  The prove: stateless execution of the blocks, `build_vm_batch` (token mode:
      2,000 transfer and 500 token segments), the access records (3,504
      writes, depth 6), the state proof, TransferAir, TokenAir, the
      binding proof, the aggregation of the four into one outer
      FriVerifyAir STARK and the Groth16 wrap of its digest (BN254 MSMs,
      K5), with the host walls of each step and the peak device memory;
-     the output, write-log and VM-meta digests, the tree shape, the mode
-     and the segment counts are held to the reference's
-     (`baseline3_expected.json`).  Then the synthesized VM-mode batch,
+     the submitted proof's output, write-log and VM-meta digests, the
+     tree shape, the mode and the segment counts are held to the
+     reference's (`baseline3_expected.json`); in a child process, beside
+     the later phases, `GpuBackend(device="cpu").verify_with_input`
+     accepts that proof and rejects it with one output byte flipped and
+     with its `vm` metadata removed, with its walls.  Then the
+     synthesized VM-mode batch,
      the only path with a generic call, its counts zeroed just before
      and read just after: `prover.gpu_backend.prove_vm_stages(...,
      "groth16")` on BASELINE-3's stream cut to 32 rounds a block (512
@@ -83,7 +94,14 @@ Phases:
      x 115) and a 512-limb binding proof (64 chunks), then
      `prover.gpu_backend.prove_formats(..., "groth16")` over the two, with
      the checks of phase 6 (in a child process too);
-  8. the executed path's wrap proved once more (`wrap_prove` of its
+  8. the drills: `runtime_errors.memory_gate` fed a free size below a
+     STARK's estimate refuses it (`classify` gives "oom") before any
+     kernel launches; the committed mixed batch at `stark`, under a
+     batch context with a temporary ETHREX_PROOF_CKPT_DIR, killed by the
+     `backend.phase` drop fault at each phase boundary in turn and
+     resumed by the next prove, ends in a proof equal to the
+     uninterrupted one (the resumed phases and the envelope bytes
+     logged).  Then the executed path's wrap proved once more (`wrap_prove` of its
      digest)
      with host timers on its parts (witness, `is_satisfied`, `_h_coeffs`,
      point and scalar conversion, MSM calls, host curve arithmetic), CUDA
@@ -571,6 +589,18 @@ def path_airs():
             "Poseidon2SpongeAir": (pair.Poseidon2SpongeAir(BINDING_CHUNKS),
                                    1 << 8, None),
             "FriVerifyAir": (fva.FriVerifyAir(22), 1 << 22, 1 << 22)}
+
+
+def drill_airs():
+    """AIRs of shapes that `path_airs` does not have: the committed mixed
+    batch's StateUpdateAir (depth 3, 8-period segments), which the resume
+    drill proves, and the binding proof of 13 chunks that both the drill
+    and the executed path prove."""
+    from ethrex_tpu_torch.models import poseidon2_air as pair
+    from ethrex_tpu_torch.models import state_update_air as sua
+
+    return (sua.StateUpdateAir(3, seg_periods=8),
+            pair.Poseidon2SpongeAir(13))
 
 
 def combine_plain_window(air, lde, per, B, apow, lo: int, hi: int):
@@ -1935,17 +1965,141 @@ def check_path_launches(tag, launches, traces, tables: int) -> None:
                              f" times for {len(traces)} STARKs")
 
 
-def executed_path(dev) -> dict:
-    """The main path: the committed BASELINE-3 ProgramInput (1,000
-    transactions over 4 blocks) through `GpuBackend(device=dev).prove(pi,
-    "groth16")`, which executes it, builds its VM batch and access
-    records, proves the state, TransferAir, TokenAir and binding STARKs,
-    aggregates them and wraps the aggregate.  Its results are held to the
-    reference's (`fixtures.expected`): the output, write-log and VM-meta
-    digests, the tree depth, seg_periods, the mode and the segment
-    counts."""
-    from ethrex_tpu_torch import fixtures, kernels
+class SmokeCoordinator:
+    """A minimal proof coordinator on 127.0.0.1, written here with the
+    port's wire framing (`prover.protocol`, the reference's bytes): it
+    answers one InputRequest with `input_json` at `proof_format`, acks
+    heartbeats that carry the lease token, and takes one ProofSubmit,
+    which `check(proof)` must accept before the ACK.  One connection at a
+    time, on a thread of its own; `stop()` closes it."""
+
+    def __init__(self, input_json: dict, proof_format: str, check):
+        import socket
+        import threading
+
+        self.input_json = input_json
+        self.proof_format = proof_format
+        self.check = check
+        self.lease_token = "smoke-lease-1"
+        self.assigned = False
+        self.proof = None
+        self.warm = None
+        self.heartbeats = []
+        self.t_request = self.t_ack = None
+        self.error = None
+        self.sock = socket.create_server(("127.0.0.1", 0))
+        self.port = self.sock.getsockname()[1]
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return          # closed by stop()
+            with conn:
+                try:
+                    self._handle(conn)
+                except Exception as e:          # reported by the caller
+                    self.error = e
+
+    def _handle(self, conn):
+        from ethrex_tpu_torch.prover import protocol
+
+        msg = protocol.recv_msg_file(conn.makefile("rb"))
+        kind = msg.get("type") if msg else None
+        if kind == protocol.INPUT_REQUEST:
+            if msg.get("commit_hash") != protocol.PROTOCOL_VERSION:
+                protocol.send_msg(conn, {
+                    "type": protocol.VERSION_MISMATCH,
+                    "expected": protocol.PROTOCOL_VERSION})
+                return
+            if self.assigned:
+                protocol.send_msg(conn, {"type": protocol.TYPE_NOT_NEEDED})
+                return
+            self.assigned = True
+            self.warm = msg.get("warm")
+            self.t_request = time.perf_counter()
+            protocol.send_msg(conn, {
+                "type": protocol.INPUT_RESPONSE, "batch_id": 1,
+                "input": self.input_json, "format": self.proof_format,
+                "lease_token": self.lease_token})
+        elif kind == protocol.HEARTBEAT:
+            ok = msg.get("lease_token") == self.lease_token
+            if ok:
+                self.heartbeats.append(msg.get("phase"))
+            protocol.send_msg(conn, {"type": protocol.HEARTBEAT_ACK,
+                                     "batch_id": msg.get("batch_id"),
+                                     "ok": ok})
+        elif kind == protocol.PROOF_SUBMIT:
+            proof = msg.get("proof")
+            if msg.get("lease_token") != self.lease_token \
+                    or msg.get("batch_id") != 1 or not self.check(proof):
+                protocol.send_msg(conn, {"type": protocol.ERROR,
+                                         "message": "proof rejected"})
+                return
+            self.proof = proof
+            protocol.send_msg(conn, {"type": protocol.SUBMIT_ACK,
+                                     "batch_id": 1})
+            self.t_ack = time.perf_counter()
+
+    def stop(self):
+        self.sock.close()
+        self.thread.join(timeout=10)
+
+
+def smoke_backend(dev, stats, traces, artifacts):
+    """A `GpuBackend` on `dev` whose `prove` (the proof client's call)
+    passes the smoke's `stats`, `traces` and `artifacts` dicts through and
+    records its own wall under stats["prove_wall_s"]."""
+    from ethrex_tpu_torch.prover.gpu_backend import GpuBackend
+
+    class SmokeBackend(GpuBackend):
+        def prove(self, program_input, proof_format):
+            t0 = time.perf_counter()
+            proof = super().prove(program_input, proof_format, stats=stats,
+                                  traces=traces, artifacts=artifacts)
+            torch.cuda.synchronize()
+            stats["prove_wall_s"] = time.perf_counter() - t0
+            return proof
+
+    return SmokeBackend(device=dev)
+
+
+def expected_mode_job(name: str):
+    """Runs in a child: the committer's classifier over the fixture (a
+    stateless re-execution, host Python)."""
+    torch.set_num_threads(1)
+    from ethrex_tpu_torch import fixtures
     from ethrex_tpu_torch.prover import gpu_backend
+
+    t0 = time.perf_counter()
+    mode = gpu_backend.expected_vm_mode(fixtures.load_program_input(name))
+    return mode, time.perf_counter() - t0
+
+
+def executed_path(dev, mode_future) -> dict:
+    """The main path: the committed BASELINE-3 ProgramInput (1,000
+    transactions over 4 blocks) pulled from `SmokeCoordinator` by the
+    port's `ProverClient(backend, [(host, port)]).poll_once()`, which
+    proves it at groth16 through `GpuBackend.prove` (execution, its VM
+    batch and access records, the state, TransferAir, TokenAir and
+    binding STARKs, their aggregate and the wrap) and submits it over a
+    fresh connection.  The coordinator checks `verify_submission` and
+    `check_coverage(proof, expected_vm_mode(pi))` against mode `token`
+    (`mode_future`: the classifier, run in a child) before its ACK.  The
+    round runs with ETHREX_PROOF_CKPT_OFF=1, the reference's own knob:
+    checkpointed, one BASELINE-3 batch would write its LDEs and Merkle
+    trees (tens of GB) to the temporary directory.  The submitted proof's
+    results are held to the reference's (`fixtures.expected`): the
+    output, write-log and VM-meta digests, the tree depth, seg_periods,
+    the mode and the segment counts."""
+    import os
+
+    from ethrex_tpu_torch import fixtures, kernels
+    from ethrex_tpu_torch.prover import gpu_backend, protocol
+    from ethrex_tpu_torch.prover.client import ProverClient
 
     t0 = time.perf_counter()
     pi = fixtures.load_program_input("baseline3")
@@ -1954,20 +2108,67 @@ def executed_path(dev) -> dict:
         f"{time.perf_counter() - t0:.2f} s: {len(pi.blocks)} blocks, "
         f"{sum(len(b.body.transactions) for b in pi.blocks)} transactions, "
         f"{len(pi.witness.nodes)} witness nodes")
-    backend = gpu_backend.GpuBackend(device=dev)
     stats: dict = {}
     traces: dict = {}
     artifacts: dict = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    t_path = time.perf_counter()
-    proof = backend.prove(pi, "groth16", stats=stats, traces=traces,
-                          artifacts=artifacts)
-    torch.cuda.synchronize()
-    path_s = time.perf_counter() - t_path
-    launches = dict(kernels.LAUNCHES)
+    backend = smoke_backend(dev, stats, traces, artifacts)
+    gate = {}
+
+    def check(proof):
+        # the coordinator's gate at ProofSubmit: structural, plus the
+        # anti-downgrade check against the committer's classifier
+        t_c = time.perf_counter()
+        expected_mode, mode_s = mode_future.result()
+        gate.update(
+            submission=backend.verify_submission(proof),
+            coverage=backend.check_coverage(proof, expected_mode),
+            expected_mode=expected_mode, mode_s=mode_s,
+            check_s=time.perf_counter() - t_c)
+        return gate["submission"] and gate["coverage"] \
+            and expected_mode == "token"
+
+    coord = SmokeCoordinator(pi.to_json(), protocol.FORMAT_GROTH16, check)
+    client = ProverClient(backend, [("127.0.0.1", coord.port)],
+                          heartbeat_interval=20.0, rng_seed=SEED)
+    if not client._prewarm_done.wait(600):
+        raise AssertionError("the client's pre-warm did not finish")
+    log(f"[client] pre-warm built {client.hydrated_groups} artifacts; "
+        f"InputRequest warm={client.warm}")
+    prev_off = os.environ.get("ETHREX_PROOF_CKPT_OFF")
+    os.environ["ETHREX_PROOF_CKPT_OFF"] = "1"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t_path = time.perf_counter()
+        proven = client.poll_once()
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t_path
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        client.stop()
+        coord.stop()
+        if prev_off is None:
+            os.environ.pop("ETHREX_PROOF_CKPT_OFF")
+        else:
+            os.environ["ETHREX_PROOF_CKPT_OFF"] = prev_off
+    if coord.error is not None:
+        raise coord.error
+    if proven != 1 or coord.proof is None or client.submit_rejections:
+        raise AssertionError(f"the client round failed: proven {proven}, "
+                             f"gate {gate}, rejections "
+                             f"{client.submit_rejections}")
+    proof = coord.proof
+    round_s = coord.t_ack - coord.t_request
     peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[client] round from InputRequest to ACK {round_s:.3f} s (the "
+        f"prove's own wall {stats['prove_wall_s']:.3f} s, the poll "
+        f"{path_s:.3f} s); {len(coord.heartbeats)} heartbeats, phases "
+        f"{sorted(set(p for p in coord.heartbeats if p))}; the "
+        f"coordinator's gate: verify_submission {gate['submission']}, "
+        f"check_coverage {gate['coverage']} against mode "
+        f"{gate['expected_mode']} (expected_vm_mode {gate['mode_s']:.1f} "
+        f"s in a child, gate {gate['check_s']:.3f} s)")
     log(f"[executed] host walls: execute {stats['execute_s']:.3f} s, "
         f"build_vm_batch {stats['build_vm_batch_s']:.3f} s, access "
         f"records {stats['records_s']:.3f} s; mode {stats['mode']}")
@@ -1985,14 +2186,186 @@ def executed_path(dev) -> dict:
             "tok_proof", "aggregate", "groth16"}:
         raise AssertionError(f"executed path: results differ from the "
                              f"reference's: {wrong}, keys {sorted(proof)}")
-    log(f"[executed] output, write-log and VM-meta digests, depth "
-        f"{got['depth']}, seg_periods {got['seg_periods']}, mode "
-        f"{got['mode']} and segments {json.dumps(got['segments'])} equal "
-        f"the reference's (baseline3_expected.json)")
+    log(f"[executed] the submitted proof's output, write-log and VM-meta "
+        f"digests, depth {got['depth']}, seg_periods {got['seg_periods']}, "
+        f"mode {got['mode']} and segments {json.dumps(got['segments'])} "
+        f"equal the reference's (baseline3_expected.json)")
     check_path_launches("executed path", launches, traces, tables=4)
+    reckoned = reckon_batch(stats, gpu_backend.PARAMS.log_blowup)
+    log(f"[ckpt] reckoned checkpoint envelopes of this batch, were it "
+        f"checkpointed (commit, quotient and open of each STARK): "
+        f"{sum(reckoned.values())} bytes: {json.dumps(reckoned)}")
     return dict(launches=launches, airs=artifacts["airs"], out=proof,
                 proofs=artifacts["proofs"], main_s=path_s, peak_bytes=peak,
-                params=gpu_backend.PARAMS, stats=stats, traces=traces)
+                params=gpu_backend.PARAMS, stats=stats, traces=traces,
+                round_s=round_s)
+
+
+def reckon_envelope_bytes(n: int, w: int, log_blowup: int) -> int:
+    """Bytes of one STARK's commit, quotient and open checkpoint
+    envelopes (int32 words; the pickle's framing not counted): the trace
+    LDE (w N) and its Merkle tree (2N - 1 digests of 8); the quotient's
+    chunks (B n 4), their LDE (4 B N) and its tree; the openings (2 w + B
+    values of 4).  The fri envelope and the finished proof, kilobytes to
+    megabytes, are left out."""
+    B = 1 << log_blowup
+    N = n << log_blowup
+    tree = (2 * N - 1) * 8
+    return 4 * (w * N + tree + B * n * 4 + 4 * B * N + tree
+                + (2 * w + B) * 4)
+
+
+def reckon_batch(stats, log_blowup: int) -> dict:
+    """`reckon_envelope_bytes` for every STARK a prove's stats hold (the
+    inner ones by name, the aggregate's outer one as "outer")."""
+    shapes = {name: (st["n"], st["width"]) for name, st in stats.items()
+              if isinstance(st, dict) and "width" in st}
+    if "aggregate" in stats:
+        outer = stats["aggregate"]["outer"]
+        shapes["outer"] = (outer["n"], outer["width"])
+    return {name: reckon_envelope_bytes(n, w, log_blowup)
+            for name, (n, w) in shapes.items()}
+
+
+def verify_job(proof, keys) -> dict:
+    """Runs in a child, on the card's host: `GpuBackend(device="cpu")
+    .verify_with_input` accepts the executed path's submitted groth16
+    proof with the BASELINE-3 ProgramInput and rejects it with one output
+    byte flipped and with its `vm` metadata removed (the downgrade).
+    Returns the walls."""
+    torch.set_num_threads(1)
+    from ethrex_tpu_torch import fixtures
+    from ethrex_tpu_torch.prover import groth16_wrap
+    from ethrex_tpu_torch.prover.gpu_backend import GpuBackend
+
+    groth16_wrap.use_keys(keys)
+    pi = fixtures.load_program_input("baseline3")
+    backend = GpuBackend(device="cpu")
+    walls = {}
+    flipped = dict(proof)
+    out = bytearray.fromhex(proof["output"][2:])
+    out[0] ^= 1
+    flipped["output"] = "0x" + out.hex()
+    downgraded = {k: v for k, v in proof.items() if k != "vm"}
+    for name, candidate, want in (("honest", proof, True),
+                                  ("output_byte", flipped, False),
+                                  ("vm_removed", downgraded, False)):
+        t0 = time.perf_counter()
+        got = backend.verify_with_input(candidate, pi)
+        walls[name] = time.perf_counter() - t0
+        if got is not want:
+            raise AssertionError(f"verify_with_input gave {got} on the "
+                                 f"{name} proof ({want} expected)")
+    return walls
+
+
+def resume_drill(dev) -> dict:
+    """The committed mixed batch at `stark` format under
+    `checkpoint.batch_context` with a temporary ETHREX_PROOF_CKPT_DIR:
+    the `backend.phase` drop fault ends the prove at each phase boundary
+    in turn (the execute envelope, then each STARK's commit, quotient,
+    open and fri), and the next prove resumes from the finished phases.
+    The proof that comes out, and a re-prove that loads every finished
+    STARK, must equal the uninterrupted one under json.dumps(...,
+    sort_keys=True)."""
+    import os
+    import tempfile
+
+    from ethrex_tpu_torch import fixtures
+    from ethrex_tpu_torch.prover import checkpoint
+    from ethrex_tpu_torch.prover import runtime_errors as rt
+    from ethrex_tpu_torch.prover.gpu_backend import GpuBackend
+    from ethrex_tpu_torch.utils import faults
+
+    pi = fixtures.load_program_input("mixed")
+    backend = GpuBackend(device=dev)
+    stats: dict = {}
+    t0 = time.perf_counter()
+    want = json.dumps(backend.prove(pi, "stark", stats=stats),
+                      sort_keys=True)
+    base_s = time.perf_counter() - t0
+    reckoned = sum(reckon_batch(stats, 3).values())
+    rt.reset_stats()
+    prev = os.environ.get("ETHREX_PROOF_CKPT_DIR")
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_") as tmp:
+        os.environ["ETHREX_PROOF_CKPT_DIR"] = tmp
+        try:
+            kills, proof = 0, None
+            t0 = time.perf_counter()
+            with checkpoint.batch_context("smoke-drill", lease_token="t"):
+                while proof is None:
+                    faults.install(faults.FaultPlan(seed=kills).drop(
+                        "backend.phase", times=1))
+                    try:
+                        proof = backend.prove(pi, "stark")
+                    except faults.InjectedFault:
+                        kills += 1
+                        if kills > 40:
+                            raise AssertionError("the drill never ended")
+                    finally:
+                        faults.clear()
+                drill_s = time.perf_counter() - t0
+                resumed = rt.STATS["phase_resumes"]
+                envelope_bytes = sum(
+                    os.path.getsize(os.path.join(root, f))
+                    for root, _, files in os.walk(tmp) for f in files)
+                again = backend.prove(pi, "stark")
+        finally:
+            if prev is None:
+                os.environ.pop("ETHREX_PROOF_CKPT_DIR")
+            else:
+                os.environ["ETHREX_PROOF_CKPT_DIR"] = prev
+    for name, got in (("resumed", proof), ("re-proved", again)):
+        if json.dumps(got, sort_keys=True) != want:
+            raise AssertionError(f"the drill's {name} proof differs from "
+                                 f"the uninterrupted one")
+    if not reckoned <= envelope_bytes <= 1.1 * reckoned:
+        raise AssertionError(f"envelopes {envelope_bytes} bytes, reckoned "
+                             f"{reckoned} from the shapes")
+    log(f"[drill] mixed batch, stark: {kills} kills at phase boundaries, "
+        f"{resumed} phases resumed from checkpoints, envelopes "
+        f"{envelope_bytes} bytes (reckoned from the shapes: {reckoned} in "
+        f"the commit, quotient and open envelopes); the resumed proof and a re-prove that "
+        f"loads every finished STARK equal the uninterrupted one "
+        f"({base_s:.2f} s uninterrupted, {drill_s:.2f} s for the "
+        f"{kills + 1} proves of the drill)")
+    return dict(kills=kills, resumed=resumed, envelope_bytes=envelope_bytes)
+
+
+def oom_drill(dev, rng) -> None:
+    """`memory_gate` fed an available size below a STARK's estimate
+    (`runtime_errors.stark_bytes`) refuses it with `classify(...) ==
+    "oom"` before any kernel of that STARK launches."""
+    from ethrex_tpu_torch import kernels
+    from ethrex_tpu_torch.prover import gpu_backend
+    from ethrex_tpu_torch.prover import runtime_errors as rt
+    from ethrex_tpu_torch.stark import prover
+
+    air, trace, pub = state_job(rng, 126, 127)
+    params = gpu_backend.PARAMS
+    est = rt.stark_bytes(trace.shape[0], trace.shape[1], params.log_blowup,
+                         air.num_periodic, len(air.boundaries(
+                             pub, trace.shape[0])))
+    real = rt._available_bytes
+    rt._available_bytes = lambda device: est // 2
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        prover.prove(air, trace, pub, params, device=dev)
+    except rt.TransientPhaseError as e:
+        kind = rt.classify(e)
+    else:
+        kind = None
+    finally:
+        rt._available_bytes = real
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if kind != "oom" or launched:
+        raise AssertionError(f"the memory gate gave {kind!r} and launched "
+                             f"{launched}")
+    log(f"[oom] memory_gate refused a {trace.shape[0]} x {trace.shape[1]} "
+        f"STARK (estimate {est} bytes, {est // 2} fed as free): classify "
+        f"gave 'oom', no kernel launched")
 
 
 def main_path(dev, rng) -> dict:
@@ -2301,6 +2674,10 @@ def build_all() -> None:
     texts = [air_codegen.cuda_source(air_codegen.record(air), mode=mode)[0]
              for mode in air_codegen.MODES
              for air, _, _ in path_airs().values()]
+    # the resume drill's two AIRs of other shapes (its combine kernels)
+    texts += [air_codegen.cuda_source(air_codegen.record(air),
+                                      mode="combine")[0]
+              for air in drill_airs()]
     errors = []
 
     def static():
@@ -2349,7 +2726,7 @@ def main() -> int:
     # children: the wrap keys' host setup, then the host verification of
     # the two VM-mode paths, each beside the card's later phases
     with concurrent.futures.ProcessPoolExecutor(
-            max_workers=2,
+            max_workers=3,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         keys_future = pool.submit(wrap_keys_job)
         build_all()
@@ -2367,7 +2744,8 @@ def main() -> int:
         log(f"[phase] fused step done at "
             f"{time.perf_counter() - t_start:.1f} s")
         keys = install_wrap_keys(keys_future)
-        executed = executed_path(dev)
+        mode_future = pool.submit(expected_mode_job, "baseline3")
+        executed = executed_path(dev, mode_future)
         log(f"[phase] executed path done at "
             f"{time.perf_counter() - t_start:.1f} s")
         prof = profile_path(dev, executed)
@@ -2376,6 +2754,7 @@ def main() -> int:
         checks = [pool.submit(check_path_job, "executed path",
                               executed["airs"], executed["proofs"],
                               executed["out"], executed["params"], keys)]
+        verify_future = pool.submit(verify_job, executed["out"], keys)
         result = main_path(dev, rng)
         log(f"[phase] synthesized VM path done at "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -2387,6 +2766,10 @@ def main() -> int:
                                   two["airs"], two["proofs"], two["out"],
                                   two["params"], keys))
         log(f"[phase] two-proof path done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        oom_drill(dev, np.random.default_rng(SEED + 1))
+        resume_drill(dev)
+        log(f"[phase] OOM and resume drills done at "
             f"{time.perf_counter() - t_start:.1f} s")
         from ethrex_tpu_torch.prover import groth16_wrap
 
@@ -2412,6 +2795,13 @@ def main() -> int:
         t0 = time.perf_counter()
         for f in checks:
             f.result()
+        walls = verify_future.result()
+        log(f"[verify] in a child on the card's host, GpuBackend(device="
+            f"'cpu').verify_with_input accepted the executed path's "
+            f"submitted groth16 proof in {walls['honest']:.3f} s and "
+            f"rejected it with one output byte flipped "
+            f"({walls['output_byte']:.3f} s) and with its vm metadata "
+            f"removed ({walls['vm_removed']:.3f} s)")
         log(f"[phase] the paths' host checks done at "
             f"{time.perf_counter() - t_start:.1f} s (waited "
             f"{time.perf_counter() - t0:.1f} s)")

@@ -6,10 +6,8 @@ PrecompileError for invalid input (the caller treats it as call failure,
 consuming all forwarded gas).
 
 KZG point evaluation (0x0a) imports crypto/kzg.py and the BLS12-381 suite
-(0x0b..0x0f) crypto/bls12_381.py when first called.  Neither module is in
-this package yet, so a batch that calls them fails to execute (an import
-error) rather than executing differently; the addresses still count as
-precompiles for warmth and gas.  The two RFC 9380 map-to-curve
+(0x0b..0x0f) crypto/bls12_381.py when first called (pure Python, on the
+host; a pairing takes seconds).  The two RFC 9380 map-to-curve
 precompiles (0x10/0x11) fail closed pending the published isogeny
 constant tables.
 """

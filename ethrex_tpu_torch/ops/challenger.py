@@ -60,11 +60,20 @@ class Challenger:
                 break
         self.absorb_elems([len(limbs)] + limbs)
 
+    # The sponge is the only mutable prover state between device phases,
+    # so a phase checkpoint (prover/checkpoint) that snapshots it resumes
+    # the transcript mid-proof with every later challenge bit-identical.
     def state(self) -> dict:
         """Plain-data snapshot of the sponge."""
         return {"state": list(self._state),
                 "absorb_pos": self._absorb_pos,
                 "squeeze_pos": self._squeeze_pos}
+
+    def restore(self, snap: dict) -> None:
+        """Resume from a `state()` snapshot."""
+        self._state = [int(x) for x in snap["state"]]
+        self._absorb_pos = int(snap["absorb_pos"])
+        self._squeeze_pos = int(snap["squeeze_pos"])
 
     # -- sampling ----------------------------------------------------------
     def sample(self) -> int:

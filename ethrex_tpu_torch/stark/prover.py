@@ -18,9 +18,11 @@ of `_build_phases`, :458-583).  Pipeline per proof:
 
 The transcript order, the host query openings and the proof dict (keys and
 value types) are the JAX prover's, so proofs are equal under
-`json.dumps(..., sort_keys=True)`.  Left out for a later slice: the
-checkpoint store, the fault legs and degradation ladder, tracing spans and
-mesh sharding (with checkpointing off they never change the proof bytes).
+`json.dumps(..., sort_keys=True)`.  The phases run under the runtime-error
+guard and, inside a batch context, store and resume phase checkpoints
+(`prove_with_stats`; reference `stark/prover.py:698-956`); a resumed proof
+is byte-identical.  Left out: the reference's tracing spans and mesh
+sharding (one card; neither changes the proof bytes).
 
 Phase walls are bounded by `torch.cuda.synchronize()` on the card and
 returned by `prove_with_stats`, with each phase's span on the host's
@@ -219,7 +221,24 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
     """`prove`, also returning {"phase_s": {phase: wall seconds},
     "phase_spans": [(phase, start, end) on time.perf_counter()],
     "peak_bytes_by_phase": {phase: torch.cuda.max_memory_allocated at
-    its end} (on the card), ...}."""
+    its end} (on the card), "resumed": [phases loaded from checkpoints],
+    ...}.
+
+    Before any kernel of the proof launches, the memory gate
+    (prover/runtime_errors) refuses a STARK whose working set does not
+    fit the device's free memory.  Inside a batch context
+    (prover/checkpoint) every phase consults the checkpoint store first:
+    a finished proof returns at once, and a contiguous prefix of
+    completed phases (commit -> quotient -> open -> fri) loads its
+    tensors and the transcript sponge instead of running again.  Each
+    live phase runs under `guard_phase` (fault legs, taxonomy) and
+    `screen_outputs`, stores its envelope, then fires the
+    `backend.phase` drop leg: the kill point of the resume drill.
+    Outside a batch context nothing is stored or loaded."""
+    from ..prover import checkpoint as ckpt_mod
+    from ..prover import runtime_errors as rt
+    from ..utils import faults
+
     device = require_cuda(device)
     n, w = trace.shape
     if w != air.width:
@@ -236,11 +255,43 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
     N = n << lb
     shift = params.shift % bb.P
     g_n = bb.root_of_unity(log_n)
+    air_name = type(air).__name__
+    bounds = air.boundaries(pub_inputs, n)
+    rt.memory_gate(air_name, device, rt.stark_bytes(
+        n, w, lb, air.num_periodic, len(bounds)))
 
     walls: dict = {}
     spans: list = []
     peaks: dict = {}
     clock = [time.perf_counter()]
+    t_start = clock[0]
+
+    def stats(resumed):
+        return {"phase_s": walls, "phase_spans": spans,
+                "peak_bytes_by_phase": peaks,
+                "total_s": time.perf_counter() - t_start,
+                "device": str(device), "n": n, "width": w, "N": N,
+                "num_constraints": air.num_constraints,
+                "resumed": resumed}
+
+    params_key = (lb, params.num_queries, params.log_final_size, shift,
+                  params.grinding_bits)
+    store = ckpt_mod.phase_store(air.cache_key(), log_n, params_key)
+    resume: dict = {}
+    if store is not None:
+        # the whole job finished before the restart: nothing to redo
+        done = store.load("proof")
+        if done is not None:
+            rt.note_resume("proof")
+            return done, stats(["proof"])
+        # a later phase without its predecessors is unusable: the query
+        # openings need the earlier Merkle trees
+        for phase in ("commit", "quotient", "open", "fri"):
+            payload = store.load(phase)
+            if payload is None:
+                break
+            rt.note_resume(phase)
+            resume[phase] = payload
 
     def mark(name):
         if device.type == "cuda":
@@ -253,7 +304,16 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
         spans.append((name, clock[0], now))
         clock[0] = now
 
-    t_start = clock[0]
+    def keep(phase, payload):
+        # a live phase's envelope (numpy copies made only when there is a
+        # store), then the boundary's drop leg
+        if store is not None:
+            store.store(phase, {**payload(), "ch": ch.state()})
+        faults.inject("backend.phase", None, kinds=("drop",))
+
+    def upload(arr):
+        return bb.from_numpy(arr, device)
+
     tb = _tables(air, log_n, lb, shift, device)
     mark("tables")
 
@@ -264,51 +324,111 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
     mark("upload")
 
     # ---- 1. trace commitment --------------------------------------------
-    lde_cols, levels_t = phase_commit(cols, lb, shift)
-    trace_root = bb.to_numpy(levels_t[-1][0])
-    ch.absorb_digest(trace_root)
+    pay = resume.get("commit")
+    if pay is not None:
+        ch.restore(pay["ch"])
+        lde_cols = upload(pay["lde_cols"])
+        levels_t = [upload(lv) for lv in pay["levels_t"]]
+        trace_root = pay["levels_t"][-1][0]
+    else:
+        def commit():
+            lde, levels = phase_commit(cols, lb, shift)
+            return lde, levels, bb.to_numpy(levels[-1][0])
+
+        lde_cols, levels_t, trace_root = rt.guard_phase("commit", air_name,
+                                                        commit)
+        rt.screen_outputs("commit", {
+            "trace_root": [int(x) for x in bb.from_mont_host(trace_root)]})
+        ch.absorb_digest(trace_root)
+        keep("commit", lambda: {
+            "lde_cols": bb.to_numpy(lde_cols),
+            "levels_t": [bb.to_numpy(lv) for lv in levels_t]})
     mark("commit")
     alpha = ch.sample_ext()
 
     # ---- 2. constraint quotient -----------------------------------------
-    bounds = air.boundaries(pub_inputs, n)
-    bound_vals = bb.mont_tensor([v % bb.P for (_, _, v) in bounds], device)
-    chunks, q_lde, levels_q = phase_quotient(
-        air, tb, lde_cols, alpha, bound_vals, n, lb, shift)
-    q_root = bb.to_numpy(levels_q[-1][0])
-    ch.absorb_digest(q_root)
+    pay = resume.get("quotient")
+    if pay is not None:
+        ch.restore(pay["ch"])
+        chunks = upload(pay["chunks"])
+        q_lde = upload(pay["q_lde"])
+        levels_q = [upload(lv) for lv in pay["levels_q"]]
+        q_root = pay["levels_q"][-1][0]
+    else:
+        def quotient():
+            bound_vals = bb.mont_tensor([v % bb.P for (_, _, v) in bounds],
+                                        device)
+            out = phase_quotient(air, tb, lde_cols, alpha, bound_vals, n,
+                                 lb, shift)
+            return (*out, bb.to_numpy(out[2][-1][0]))
+
+        chunks, q_lde, levels_q, q_root = rt.guard_phase(
+            "quotient", air_name, quotient)
+        rt.screen_outputs("quotient", {
+            "quotient_root": [int(x) for x in bb.from_mont_host(q_root)]})
+        ch.absorb_digest(q_root)
+        keep("quotient", lambda: {
+            "chunks": bb.to_numpy(chunks), "q_lde": bb.to_numpy(q_lde),
+            "levels_q": [bb.to_numpy(lv) for lv in levels_q]})
     mark("quotient")
     zeta = ch.sample_ext()
 
     # ---- 3. out-of-domain openings --------------------------------------
     zeta_g = ext.h_mul(zeta, ext.h_from_base(g_n))
-    t_z, t_zg, q_z = phase_open(cols, chunks, zeta, zeta_g)
-    t_at_z = [tuple(int(x) for x in row) for row in _canon_rows(t_z)]
-    t_at_zg = [tuple(int(x) for x in row) for row in _canon_rows(t_zg)]
-    q_at_z = [tuple(int(x) for x in row) for row in _canon_rows(q_z)]
-    for tup in t_at_z + t_at_zg + q_at_z:
-        ch.absorb_ext(tup)
+    pay = resume.get("open")
+    if pay is not None:
+        ch.restore(pay["ch"])
+        t_z, t_zg, q_z = (upload(pay[k]) for k in ("t_z", "t_zg", "q_z"))
+        t_at_z, t_at_zg, q_at_z = ([tuple(v) for v in pay[k]] for k in
+                                   ("t_at_z", "t_at_zg", "q_at_z"))
+    else:
+        def open_():
+            out = phase_open(cols, chunks, zeta, zeta_g)
+            return (*out, *([tuple(int(x) for x in row)
+                             for row in _canon_rows(t)] for t in out))
+
+        t_z, t_zg, q_z, t_at_z, t_at_zg, q_at_z = rt.guard_phase(
+            "open", air_name, open_)
+        arts = rt.screen_outputs("open", {
+            "t_at_z": t_at_z, "t_at_zg": t_at_zg, "q_at_z": q_at_z})
+        t_at_z, t_at_zg, q_at_z = (
+            arts["t_at_z"], arts["t_at_zg"], arts["q_at_z"])
+        for tup in t_at_z + t_at_zg + q_at_z:
+            ch.absorb_ext(tup)
+        keep("open", lambda: {
+            "t_z": bb.to_numpy(t_z), "t_zg": bb.to_numpy(t_zg),
+            "q_z": bb.to_numpy(q_z), "t_at_z": t_at_z, "t_at_zg": t_at_zg,
+            "q_at_z": q_at_z})
     del cols, chunks
     mark("open")
     gamma = ch.sample_ext()
 
     # ---- 4. DEEP composition + 5. FRI ------------------------------------
-    F = phase_deep(tb, lde_cols, q_lde, t_z, t_zg, q_z, zeta, zeta_g, gamma)
-    mark("deep")
-    fparams = fri.FriParams(
-        log_blowup=lb, num_queries=params.num_queries,
-        log_final_size=params.log_final_size, shift=shift,
-        grinding_bits=params.grinding_bits,
-    )
-    fprover = fri.FriProver(fparams)
-    fri_proof, indices = fprover.prove(F, ch)
-    fri_dict = {
-        "roots": fri_proof.roots,
-        "final_coeffs": [list(c) for c in fri_proof.final_coeffs],
-        "queries": fri_proof.queries,
-        "pow_nonce": fri_proof.pow_nonce,
-    }
-    del F, fprover
+    pay = resume.get("fri")
+    if pay is not None:
+        fri_dict, indices = pay["fri"], pay["indices"]
+    else:
+        def deep_fri():
+            F = phase_deep(tb, lde_cols, q_lde, t_z, t_zg, q_z, zeta,
+                           zeta_g, gamma)
+            mark("deep")
+            fparams = fri.FriParams(
+                log_blowup=lb, num_queries=params.num_queries,
+                log_final_size=params.log_final_size, shift=shift,
+                grinding_bits=params.grinding_bits,
+            )
+            return fri.FriProver(fparams).prove(F, ch)
+
+        fri_proof, indices = rt.guard_phase("fri", air_name, deep_fri)
+        fri_dict = {
+            "roots": fri_proof.roots,
+            "final_coeffs": [list(c) for c in fri_proof.final_coeffs],
+            "queries": fri_proof.queries,
+            "pow_nonce": fri_proof.pow_nonce,
+        }
+        rt.screen_outputs("fri", {"roots": fri_dict["roots"],
+                                  "final_coeffs": fri_dict["final_coeffs"]})
+        keep("fri", lambda: {"fri": fri_dict, "indices": indices})
     mark("fri")
 
     # ---- openings of trace/quotient at the query indices -----------------
@@ -343,9 +463,6 @@ def prove_with_stats(air: Air, trace: np.ndarray, pub_inputs: list[int],
         "fri": fri_dict,
         "openings": openings,
     }
-    stats = {"phase_s": walls, "phase_spans": spans,
-             "peak_bytes_by_phase": peaks,
-             "total_s": time.perf_counter() - t_start,
-             "device": str(device), "n": n, "width": w, "N": N,
-             "num_constraints": tb.num_constraints}
-    return proof, stats
+    if store is not None:
+        store.store("proof", proof)
+    return proof, stats(list(resume))
