@@ -36,8 +36,11 @@ Phases:
      step's FRI layer trees at log_n 20 and 15 (K8, K10 and K11 timed as
      device time from torch.profiler, the call beside it, with their
      ptxas registers and spills); the ext
-     inverses on 2^20 elements, eval_poly_at on 64 x 2^16 and
-     to_mont_cols on the TransferAir trace (2^20 x 278);
+     inverses on 2^20 elements, eval_poly_at on 64 x 2^16 (both
+     redesigned: with zeros, and a 0-dim device point; device
+     time and call, warm and with L2 flushed, beside an empty kernel's
+     launch floor, with their ptxas) and to_mont_cols on the
+     TransferAir trace (2^20 x 278);
   4. the main path, with the launch counts zeroed just before and read
      just after (K6's combine kernels once per constraint group of each
      STARK, its block form never): a minimal proof coordinator started
@@ -125,7 +128,6 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -179,14 +181,18 @@ K5_BASES_FUNCTIONS = ("k_shift", "k_affine")
 # deep phase's two m = 4 calls, and the fused K6 TransferAir's block
 # (38.613 ms) plus K3's read of it (31.566 ms), both by the kernels
 # before their current design; K5 the double-and-add kernel that the
-# bucket MSM replaced, at 6,990 G1 points and 2,897 G2 points
+# bucket MSM replaced, at 6,990 G1 points and 2,897 G2 points; the
+# test-only ext_batch_inv (2^20 elements) and eval_poly_at (64 x 2^16) the
+# call by their first designs (a chunk of 16 a thread; one block a row
+# over two host tables)
 EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
               "poseidon2_compress_level": 1.065, "mod_matmul": 4.062,
               "fri_fold": 0.073, "air_combine": 70.179,
               "batch_inv": 2.830, "bn254_msm_g1": 12.308,
               "bn254_msm_g2": 40.577, "deep_compose": 5.604,
               "quotient_combine": 1.567, "merkle_batched_level": 1.683,
-              "ext_poly_eval": 0.814}
+              "ext_poly_eval": 0.814, "ext_batch_inv": 0.057,
+              "eval_poly_at": 0.150}
 # kernels the groth16 paths need not launch: the reference's test-only
 # helpers (no path of the system runs them) and the fused step's own
 NOT_ON_GROTH16_PATHS = ("ext_inv", "ext_batch_inv", "eval_poly_at",
@@ -207,20 +213,12 @@ def bound_ms(nbytes: float, products: float,
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median of `reps` timed calls (CUDA events), after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def cuda_ms(fn, reps: int, before=None) -> float:
+    """Median of `reps` timed calls (CUDA events), after one warm-up;
+    `before` (untimed) runs before each (`tools/timing.py call_ms`)."""
+    from ethrex_tpu_torch.tools.timing import call_ms
+
+    return call_ms(fn, reps, before)
 
 
 def field(rng, shape, dev):
@@ -984,34 +982,120 @@ def check_powers_table(dev, rng, n: int) -> dict:
     return row
 
 
+# The launch floor: an empty kernel, one thread, behind a C entry of the
+# same kind as the port's kernels, built beside them as a generated
+# source.  It ports nothing and is not counted.
+EMPTY_KERNEL_SRC = """\
+__global__ void k_empty() {}
+
+extern "C" int empty_kernel(cudaStream_t stream) {
+  k_empty<<<1, 1, 0, stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def launch_floor(dev) -> dict:
+    """The empty kernel's device time (torch.profiler) and its call (CUDA
+    events, median of 21), the floor under any launch's."""
+    import ctypes
+
+    from ethrex_tpu_torch import kernels
+
+    fn_c = kernels.load_generated(EMPTY_KERNEL_SRC, ["empty_kernel"],
+                                  [ctypes.c_void_p]).empty_kernel
+
+    def kern():
+        kernels.check(fn_c(torch.cuda.current_stream(dev).cuda_stream),
+                      "empty_kernel")
+
+    return dict(ms=device_ms_by_function(kern, ("k_empty",))["k_empty"],
+                wrapper_ms=cuda_ms(kern, 21))
+
+
+def warm_cold_ms(fn, function: str, dev) -> dict:
+    """Device time of `function` (torch.profiler, mean over runs) and the
+    call's time (CUDA events, median of 21) of `fn`: warm, each run after
+    the last (its inputs in L2), and cold, L2 flushed before each run by
+    reading a 256 MB buffer (`tools/timing.py l2_flusher`), the card idle
+    when the cold call starts."""
+    from ethrex_tpu_torch.tools.timing import l2_flusher
+
+    flush = l2_flusher(dev)
+
+    def cold():
+        flush()
+        return fn()
+
+    return dict(ms=device_ms_by_function(fn, (function,))[function],
+                wrapper_ms=cuda_ms(fn, 21),
+                cold_ms=device_ms_by_function(cold, (function,))[function],
+                cold_wrapper_ms=cuda_ms(fn, 21, before=flush))
+
+
 def check_slice4_kernels(dev, rng) -> dict:
     """The four kernels of slice 4 at the sizes of their callers: the ext
     inverses over 2^20 elements and eval_poly_at over 64 rows of 2^16
     (test-only helpers), and to_mont_cols on the TransferAir trace as
-    uploaded (2^20 x 278)."""
+    uploaded (2^20 x 278).  ext_batch_inv and eval_poly_at (redesigned)
+    also with zeros in their inputs (ext elements; a 0-dim device point),
+    timed as device time and call, warm and cold, beside the launch
+    floor, with their ptxas registers and spills."""
     from ethrex_tpu_torch.ops import babybear as bb
     from ethrex_tpu_torch.ops import ext
     from ethrex_tpu_torch.ops import ntt
 
     rows = {}
+    floor = launch_floor(dev)
+    log(f"[kernels] launch floor (an empty kernel): {floor}")
+    ptx = {**kernel_ptxas("ext_inv.cu", ("k_ext_batch_inv", "k_ext_inv")),
+           **kernel_ptxas("poly_eval.cu", ("k_eval_poly_at",))}
     n = 1 << 20
     a = field_dev(rng, (n, 4), dev)
-    # per element: 12 Frobenius products, two ext products (32), the norm
-    # (5), the Fermat power (61), the scaling (4)
-    for name, kern, plain, prods in (
+    # zeros: every 997th element and a span of whole blocks
+    az = a.clone()
+    az[::997] = 0
+    az[8192:12288] = 0
+    # IMAD slots.  ext_inv, per element: 12 Frobenius products, two ext
+    # products (32), the norm (5), the Fermat power (61), the scaling (4),
+    # 114 Montgomery products.  ext_batch_inv, the function's work
+    # whatever implements it, priced lazily as K11's ext products are:
+    # per element one ext product forward (W x, 3 Montgomery products;
+    # 16 raw; 4 reductions) and two backward by the same inverse (W inv
+    # once, 3; 32 raw; 8 reductions), and one ext inverse.  Beside it the
+    # same 48 products an element priced as Montgomery products, and the
+    # first design's count (also one inverse per chunk of 16 elements)
+    inv_slots = 114 * SLOTS_PER_MONT
+    for name, kern, plain, slots, others in (
             ("ext_inv", ext.ext_inv_device, ext.ext_inv_device_plain,
-             n * 114),
+             n * inv_slots, None),
             ("ext_batch_inv", ext.batch_inv, ext.batch_inv_plain,
-             n * 48 + -(-n // ext._EXT_INV_CHUNK) * 114)):
+             n * (6 * SLOTS_PER_MONT + 48 * SLOTS_PER_RAW
+                  + 12 * SLOTS_PER_REDC) + inv_slots,
+             dict(bound_ms_mont_count=(n * 48 * SLOTS_PER_MONT
+                                       + inv_slots),
+                  bound_ms_old_count=(n * 48 * SLOTS_PER_MONT
+                                      + -(-n // 16) * inv_slots)))):
         err, ms, pms = compare(f"{name} ({n} ext elements)",
                                lambda: kern(a), lambda: plain(a),
                                plain_reps=1)
-        b_ms, b_by = bound_ms(4 * 8 * n, prods)
+        if not torch.equal(kern(az), plain(az)):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version with zero elements")
+        b_ms, b_by = bound_ms(4 * 8 * n, slots, 1)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                           bound_ms=b_ms, bound_by=b_by,
                           shape=f"({n}, 4) ext elements")
+        if others is not None:
+            rows[name].update(warm_cold_ms(lambda: kern(a),
+                                           "k_ext_batch_inv", dev),
+                              launch_floor=floor,
+                              **{k: bound_ms(4 * 8 * n, v, 1)[0]
+                                 for k, v in others.items()},
+                              ptxas={k: v for k, v in ptx.items()
+                                     if k.startswith("k_ext")})
         log(f"[kernels] {name} ok: {rows[name]}")
-    del a
+    del a, az
     r, m = 64, 1 << 16
     c = field_dev(rng, (r, m), dev)
     pt = int(rng.integers(1, bb.P))
@@ -1019,10 +1103,18 @@ def check_slice4_kernels(dev, rng) -> dict:
                            lambda: ntt.eval_poly_at(c, pt),
                            lambda: ntt.eval_poly_at_plain(c, pt),
                            plain_reps=1)
+    x = torch.tensor(pt, dtype=torch.int32, device=dev)
+    if not torch.equal(ntt.eval_poly_at(c, x), ntt.eval_poly_at_plain(c, pt)):
+        raise AssertionError("eval_poly_at: kernel differs from its plain "
+                             "version at a 0-dim device point")
     b_ms, b_by = bound_ms(4 * (r * m + r), 2 * r * m)
-    rows["eval_poly_at"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                shape=f"({r}, {m}) at one point")
+    rows["eval_poly_at"] = dict(
+        max_abs_err=err, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+        shape=f"({r}, {m}) at one point",
+        **warm_cold_ms(lambda: ntt.eval_poly_at(c, x), "k_eval_poly_at",
+                       dev),
+        call_ms_int_point=ms, launch_floor=floor,
+        ptxas={"k_eval_poly_at": ptx.get("k_eval_poly_at")})
     log(f"[kernels] eval_poly_at ok: {rows['eval_poly_at']}")
     del c
     n, w = 1 << 20, 278
@@ -2678,6 +2770,7 @@ def build_all() -> None:
     texts += [air_codegen.cuda_source(air_codegen.record(air),
                                       mode="combine")[0]
               for air in drill_airs()]
+    texts.append(EMPTY_KERNEL_SRC)      # the launch floor's
     errors = []
 
     def static():
@@ -2842,11 +2935,14 @@ def main() -> int:
                 if k in row}),
             **{k: row[k] for k in ("wrapper_ms", "bound_ms_double_and_add",
                                    "bound_ms_reduced_products",
-                                   "bound_ms_old_count", "fused_step_table",
+                                   "bound_ms_old_count", "bound_ms_mont_count",
+                                   "fused_step_table",
                                    "at_log_n_15",
                                    "bound_ms_unfused", "ptxas",
                                    "launches_per_call", "wrap_device_ms",
-                                   "device_ms_by_function") if k in row},
+                                   "device_ms_by_function", "cold_ms",
+                                   "cold_wrapper_ms", "launch_floor",
+                                   "call_ms_int_point") if k in row},
         })
     log(f"[earlier] each kernel's time before its current design "
         f"(PERF.md's kernel table, in braces; NVIDIA H100 80GB HBM3, "

@@ -10,20 +10,37 @@
 // product is conj, and N(a) = (a conj)_0 lies in the base field; then
 // a^-1 = conj * N(a)^(p-2): one base-field Fermat power per element.
 //
-// ext_batch_inv: thread t owns the elements t, t + T, t + 2T, ... (chunk
-// of them, so a warp's loads are contiguous), as K7 (batch_inv.cu) does
-// in the base field: a forward pass writes each element's prefix product
-// into out, one norm-trick inverse of the running product, and a backward
-// pass turns every prefix into the element's inverse.  A zero element is
-// skipped and gets 0, as the element-wise inverse gives it.  Inverses are
-// unique, so both kernels equal the reference on every nonzero input.
+// ext_batch_inv: K7's block inversion (batch_inv.cu `block_inv`) carried
+// into the extension.  A block takes THREADS x CHUNK elements; thread t
+// loads its CHUNK elements THREADS apart (a warp's 16-byte loads are
+// contiguous) into registers and keeps their running products there.
+// Inclusive prefix and suffix products of the threads' products, by
+// shuffles of the four words within a warp and then over the warps'
+// products in warp 0, give every thread the product of all the others,
+// so one norm-trick inverse of the block's product serves the block.
+// Each element is read once and its inverse written once; nothing
+// intermediate goes to device memory.  A zero element, or one past n, is
+// left out of the products (a product by one) and gets 0, as the
+// element-wise inverse gives it; an all-zero chunk, warp or block
+// included.  Inverses are unique, so both kernels equal the reference on
+// every nonzero input.
 //
-// Bound on this card: the products (element-wise about 110 a word; batched
-// 48 a word plus one inverse a chunk) against one read and one write of
-// 16 bytes.
+// Bound on this card: the products against one read and one write of 16
+// bytes an element.  ext_inv: about 114 Montgomery products an element.
+// ext_batch_inv: one ext product an element forward and two backward,
+// and one ext inverse.  Its ext products are lazy (16 raw products, a
+// fold and a reduction a coordinate, with W b made once for the b it
+// multiplies: W x forward, W inv once for both backward), so 48 raw
+// products, 12 reductions and 6 Montgomery products an element; the
+// scans add 12 ext products a thread, 1.5 an element at CHUNK = 8.
 #include "babybear.cuh"
 
 namespace {
+
+constexpr int THREADS = 128;    // threads a block of k_ext_batch_inv
+constexpr int CHUNK = 8;        // elements a thread
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Frob {
   uint32_t f[3][4];   // coordinate j of a^(p^k) is a_j f[k-1][j]
@@ -78,40 +95,161 @@ __global__ void k_ext_inv(const uint32_t* __restrict__ a,
   store4(out + 4 * i, r);
 }
 
-__global__ void k_ext_batch_inv(const uint32_t* __restrict__ a,
-                                uint32_t* __restrict__ out, long long n,
-                                long long threads, int chunk, Frob fr) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= threads) return;
-  uint32_t acc[4] = {bb::MONT_ONE, 0u, 0u, 0u};
-  int cnt = 0;
-  for (long long i = t; i < n && cnt < chunk; i += threads, ++cnt) {
-    uint32_t x[4], y[4];
-    load4(a + 4 * i, x);
-    store4(out + 4 * i, acc);
-    if (!is_zero(x)) {
-      bb::ext_mul(acc, x, y);
+// c = a b in F_p[x]/(x^4 - W), wb = W b (wb[0] unused): four raw
+// products a coordinate summed lazily (at most 4 (p - 1)^2 < 2^64), one
+// bb::fold (below 2^60 < p 2^32) and one bb::redc each
+__device__ __forceinline__ void ext_mul_w(const uint32_t a[4],
+                                          const uint32_t b[4],
+                                          const uint32_t wb[4],
+                                          uint32_t c[4]) {
+  c[0] = bb::redc(bb::fold(bb::mad(a[0], b[0], bb::mad(a[1], wb[3],
+         bb::mad(a[2], wb[2], (uint64_t)a[3] * wb[1])))));
+  c[1] = bb::redc(bb::fold(bb::mad(a[0], b[1], bb::mad(a[1], b[0],
+         bb::mad(a[2], wb[3], (uint64_t)a[3] * wb[2])))));
+  c[2] = bb::redc(bb::fold(bb::mad(a[0], b[2], bb::mad(a[1], b[1],
+         bb::mad(a[2], b[0], (uint64_t)a[3] * wb[3])))));
+  c[3] = bb::redc(bb::fold(bb::mad(a[0], b[3], bb::mad(a[1], b[2],
+         bb::mad(a[2], b[1], (uint64_t)a[3] * b[0])))));
+}
+
+__device__ __forceinline__ void times_w(const uint32_t b[4], uint32_t wb[4]) {
+  wb[0] = 0u;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] = y[j];
+  for (int m = 1; m < 4; ++m) wb[m] = bb::mul(b[m], bb::W_M);
+}
+
+// a <- a b
+__device__ __forceinline__ void mul_into(uint32_t a[4], const uint32_t b[4]) {
+  uint32_t wb[4], c[4];
+  times_w(b, wb);
+  ext_mul_w(a, b, wb, c);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) a[m] = c[m];
+}
+
+__device__ __forceinline__ void set_one(uint32_t a[4]) {
+  a[0] = bb::MONT_ONE;
+  a[1] = a[2] = a[3] = 0u;
+}
+
+// inclusive prefix (inc) and suffix (suf) products over the lanes below
+// `lanes` (a power of two), Hillis-Steele: at step d, lane l takes lane
+// l - d's prefix and lane l + d's suffix where they exist, one otherwise
+__device__ __forceinline__ void warp_scans(uint32_t inc[4], uint32_t suf[4],
+                                           int lane, int lanes) {
+#pragma unroll
+  for (int d = 1; d < lanes; d <<= 1) {
+    uint32_t u[4], w[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      u[m] = __shfl_up_sync(FULL, inc[m], d);
+      w[m] = __shfl_down_sync(FULL, suf[m], d);
+    }
+    if (lane < d) set_one(u);
+    if (lane + d >= 32) set_one(w);
+    mul_into(inc, u);
+    mul_into(suf, w);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+k_ext_batch_inv(const uint32_t* __restrict__ a, uint32_t* __restrict__ out,
+                long long n, Frob fr) {
+  __shared__ uint32_t smem[2 * WARPS][4];
+  const long long base =
+      (long long)blockIdx.x * (THREADS * CHUNK) + threadIdx.x;
+  uint32_t v[CHUNK][4], pre[CHUNK][4];
+  uint32_t run[4];
+  set_one(run);
+#pragma unroll
+  for (int c = 0; c < CHUNK; ++c) {
+    const long long i = base + (long long)c * THREADS;
+    if (i < n) {
+      load4(a + 4 * i, v[c]);
+    } else {
+      v[c][0] = v[c][1] = v[c][2] = v[c][3] = 0u;
+    }
+    // the running product before element c; a zero multiplies by one
+#pragma unroll
+    for (int m = 0; m < 4; ++m) pre[c][m] = run[m];
+    uint32_t x[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) x[m] = v[c][m];
+    if (is_zero(x)) set_one(x);
+    mul_into(run, x);
+  }
+  // the products of the warp's threads before and after this one
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t inc[4], suf[4], before[4], after[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) inc[m] = suf[m] = run[m];
+  warp_scans(inc, suf, lane, 32);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    before[m] = __shfl_up_sync(FULL, inc[m], 1);
+    after[m] = __shfl_down_sync(FULL, suf[m], 1);
+  }
+  if (lane == 0) set_one(before);
+  if (lane == 31) {
+    set_one(after);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) smem[warp][m] = inc[m];   // the warp's
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the same over the warps' products (lanes past WARPS hold one), the
+    // one inverse of the block's product, and each warp's factor: that
+    // inverse times the other warps' products
+    uint32_t wi[4], ws[4], wb[4], wa[4], total[4], f[4];
+    if (lane < WARPS) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) wi[m] = smem[lane][m];
+    } else {
+      set_one(wi);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) ws[m] = wi[m];
+    warp_scans(wi, ws, lane, WARPS);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      wb[m] = __shfl_up_sync(FULL, wi[m], 1);
+      wa[m] = __shfl_down_sync(FULL, ws[m], 1);
+      total[m] = __shfl_sync(FULL, wi[m], WARPS - 1);
+    }
+    if (lane == 0) set_one(wb);
+    ext_inverse(total, fr, f);
+    mul_into(f, wb);
+    mul_into(f, wa);
+    if (lane < WARPS) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) smem[WARPS + lane][m] = f[m];
     }
   }
+  __syncthreads();
+  // the inverse of this thread's product, then of each element, last
+  // first: element c's inverse is inv times the product before it
   uint32_t inv[4];
-  ext_inverse(acc, fr, inv);
-  for (int k = cnt - 1; k >= 0; --k) {
-    const long long i = t + (long long)k * threads;
-    uint32_t x[4], pre[4], r[4];
-    load4(a + 4 * i, x);
-    if (is_zero(x)) {
-      const uint32_t z[4] = {0u, 0u, 0u, 0u};
-      store4(out + 4 * i, z);
-      continue;
-    }
-    load4(out + 4 * i, pre);
-    bb::ext_mul(inv, pre, r);
-    store4(out + 4 * i, r);
-    bb::ext_mul(inv, x, r);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) inv[j] = r[j];
+  for (int m = 0; m < 4; ++m) inv[m] = smem[WARPS + warp][m];
+  mul_into(inv, before);
+  mul_into(inv, after);
+#pragma unroll
+  for (int c = CHUNK - 1; c >= 0; --c) {
+    const long long i = base + (long long)c * THREADS;
+    uint32_t winv[4], r[4], x[4], next[4];
+    times_w(inv, winv);
+    ext_mul_w(pre[c], inv, winv, r);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) x[m] = v[c][m];
+    const bool zero = is_zero(x);
+    if (zero) {
+      set_one(x);
+      r[0] = r[1] = r[2] = r[3] = 0u;
+    }
+    if (i < n) store4(out + 4 * i, r);
+    ext_mul_w(x, inv, winv, next);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) inv[m] = next[m];
   }
 }
 
@@ -138,13 +276,12 @@ int ext_inv(const void* a, void* out, long long n, const void* fr,
   return (int)cudaGetLastError();
 }
 
-int ext_batch_inv(const void* a, void* out, long long n, int chunk,
-                  const void* fr, cudaStream_t stream) {
+int ext_batch_inv(const void* a, void* out, long long n, const void* fr,
+                  cudaStream_t stream) {
   if (n > 0) {
-    long long threads = (n + chunk - 1) / chunk;
-    k_ext_batch_inv<<<(unsigned)((threads + 127) / 128), 128, 0, stream>>>(
-        (const uint32_t*)a, (uint32_t*)out, n, threads, chunk,
-        frob_from(fr));
+    const long long per = THREADS * CHUNK;
+    k_ext_batch_inv<<<(unsigned)((n + per - 1) / per), THREADS, 0, stream>>>(
+        (const uint32_t*)a, (uint32_t*)out, n, frob_from(fr));
   }
   return (int)cudaGetLastError();
 }

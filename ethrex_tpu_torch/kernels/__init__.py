@@ -160,6 +160,7 @@ def build(verbose: bool = False) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 
 # C entry -> argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
@@ -181,8 +182,8 @@ _SIGNATURES = {
     "p2_forest": [_P, _P, _P, _I, _I, _P],
     "ext_open": [_P, _I, _P, _L, _L, _P, _L, _L, _L, _I, _P, _P, _P, _P],
     "ext_inv": [_P, _P, _L, _P],
-    "ext_batch_inv": [_P, _P, _L, _I, _P],
-    "eval_poly_at": [_P, _L, _L, _I, _P, _P, _I, _P, _P],
+    "ext_batch_inv": [_P, _P, _L, _P, _P],
+    "eval_poly_at": [_P, _L, _L, _I, _P, _U, _I, _P, _P, _P],
     "to_mont_cols": [_P, _P, _L, _L, _L, _P],
 }
 

@@ -349,22 +349,17 @@ def batch_inv_plain(a):
     return ext_inv_device_plain(a)
 
 
-# elements per thread of the batched ext inverse: one norm-trick inverse
-# (about 110 products) per chunk against 48 products per element
-_EXT_INV_CHUNK = 16
-
-
 def batch_inv(a):
     """Inverses of nonzero ext elements (..., 4) Montgomery, by
-    Montgomery's trick over a chunk of elements per thread.  Kernel
-    `ext_batch_inv` on a CUDA tensor (a zero element gets 0)."""
+    Montgomery's trick over a block of elements with one ext inverse a
+    block.  Kernel `ext_batch_inv` on a CUDA tensor (a zero element gets
+    0)."""
     if a.device.type != "cuda":
         return batch_inv_plain(a)
     flat = _ext_rows(a, "batch_inv")
     out = torch.empty_like(flat)
     kernels.call("ext_batch_inv", a.device, kernels.ptr(flat),
-                 kernels.ptr(out), flat.shape[0], _EXT_INV_CHUNK,
-                 _FR_ALL.ctypes.data)
+                 kernels.ptr(out), flat.shape[0], _FR_ALL.ctypes.data)
     kernels.count("ext_batch_inv")
     return out.reshape(a.shape)
 

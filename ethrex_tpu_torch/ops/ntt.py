@@ -321,8 +321,10 @@ def eval_poly_at(coeffs, point):
     """Polynomials at one base-field point: coeffs (..., n) Montgomery,
     point a Montgomery scalar (int or 0-dim tensor) -> (...) Montgomery.
     The reference runs a Horner scan; the value is unique, so any order
-    of the sum gives it.  Kernel `eval_poly_at` on a CUDA tensor: one
-    block per row over two short power tables."""
+    of the sum gives it.  Kernel `eval_poly_at` on a CUDA tensor: each
+    row split over several blocks, the powers made on the card from the
+    point (by value, or read by the kernel from a 0-dim device tensor),
+    so the call builds no host table and does not sync."""
     if coeffs.device.type != "cuda":
         return eval_poly_at_plain(coeffs, point)
     kernels.require_int32_cuda(coeffs, "eval_poly_at")
@@ -333,19 +335,25 @@ def eval_poly_at(coeffs, point):
         c = c.contiguous()
     rows = c.shape[0]
     dev = coeffs.device
-    x = _point_mont(point)
-    lg_blk = max(4, (max(n, 1).bit_length() + 1) // 2)
-    nb = max(1, -(-n // (1 << lg_blk)))
-    small = bb.from_numpy(bb.to_mont_host(bb.powers_host(x, 1 << lg_blk)),
-                          dev)
-    big = bb.from_numpy(bb.to_mont_host(bb.powers_host(
-        pow(x, 1 << lg_blk, bb.P), nb)), dev)
+    xp, xv = None, 0
+    if isinstance(point, torch.Tensor) and point.device.type == "cuda":
+        if point.numel() != 1 or point.device != dev:
+            raise ValueError("eval_poly_at: the point must be one element "
+                             "on the coefficients' device")
+        xp = point.reshape(()).to(torch.int32)
+    else:
+        xv = int(point.item() if isinstance(point, torch.Tensor)
+                 else point) & 0xFFFFFFFF
+    if n == 0 or rows == 0:
+        return torch.zeros(lead, dtype=bb.I32, device=dev)
     out = torch.empty((rows,), dtype=bb.I32, device=dev)
-    if rows:
-        kernels.call("eval_poly_at", dev, kernels.ptr(c), c.stride(0), n,
-                     rows, kernels.ptr(small), kernels.ptr(big), lg_blk,
-                     kernels.ptr(out))
-        kernels.count("eval_poly_at")
+    # each row's count of finished blocks and sum, in one 64-bit word
+    words = torch.zeros(rows, dtype=torch.int64, device=dev)
+    aligned = c.data_ptr() % 16 == 0 and (rows == 1 or c.stride(0) % 4 == 0)
+    kernels.call("eval_poly_at", dev, kernels.ptr(c), c.stride(0), n, rows,
+                 None if xp is None else kernels.ptr(xp), xv, int(aligned),
+                 kernels.ptr(words), kernels.ptr(out))
+    kernels.count("eval_poly_at")
     return out.reshape(lead)
 
 

@@ -24,82 +24,24 @@ name) and their sum (`device_ms`), over 5 calls after a warm-up step.
 The card's name and power limit print first, one JSON line a
 measurement.  The tool uses only public functions of `ops/ext.py`,
 `ops/merkle.py` and `stark/prover.py`, so it runs on a tree from before
-the current K10 and K11 (copy it into `<tree>/ethrex_tpu_torch/tools/`
-and run it from `<tree>`): PERF.md's before-and-after numbers come from
-runs on both trees in one call.
+the current K10 and K11 (copy it and `timing.py` into
+`<tree>/ethrex_tpu_torch/tools/` and run it from `<tree>`): PERF.md's
+before-and-after numbers come from runs on both trees in one call.
 """
 
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 
 import torch
 
+from .timing import call_ms as _ms
+from .timing import device_ms as _device
+
 P = 2013265921
 SEED = 20261018
-
-
-def _ms(fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
-
-
-def _short(name: str) -> str:
-    if name.startswith(("Memcpy", "Memset")):
-        return name.split(" (")[0]
-    name = name.replace("(anonymous namespace)::", "")
-    head = name.split("<")[0].split("(")[0].split("::")[-1].split()
-    return head[-1] if head else name
-
-
-def _device(fn, reps=5) -> dict:
-    """Device ms a call of `fn`, by device function, from torch.profiler:
-    a warm-up step, then `reps` calls in the active step; the card idles
-    first (the profiler drops device events it places before its
-    start)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(4):
-                torch.cuda._sleep(1 << 20)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    by: dict = {}
-    events: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        nm = _short(e.name)
-        if "spin_kernel" in nm or "sleep" in nm:
-            continue
-        by[nm] = by.get(nm, 0.0) + e.time_range.elapsed_us() / 1e3
-        events[nm] = events.get(nm, 0) + 1
-    return dict(device_ms=round(sum(by.values()) / reps, 4),
-                device_ms_by_function={k: round(v / reps, 4)
-                                       for k, v in sorted(
-                                           by.items(), key=lambda kv: -kv[1])},
-                events_by_function=events, reps=reps)
 
 
 def _rand(gen, shape, dev):

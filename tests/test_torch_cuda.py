@@ -111,7 +111,23 @@ def test_compress_level_kernel_equals_plain(dev, m):
                        p2.compress_level_plain(level))
 
 
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 4097])
+def _cu_int(src: str, name: str) -> int:
+    """A `constexpr int` of a kernel source."""
+    text = (kernels.CSRC / src).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# ext_batch_inv's block: THREADS x CHUNK elements; eval_poly_at's span:
+# ITERS x 2^LOG_STRIDE coefficients a block
+_EXT_BLOCK = (_cu_int("ext_inv.cu", "THREADS")
+              * _cu_int("ext_inv.cu", "CHUNK"))
+_EVAL_SPAN = (_cu_int("poly_eval.cu", "ITERS")
+              << _cu_int("poly_eval.cu", "LOG_STRIDE"))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 4097, 31, 33,
+                               _EXT_BLOCK - 1, _EXT_BLOCK, _EXT_BLOCK + 1,
+                               3 * _EXT_BLOCK + 17])
 def test_ext_inverse_kernels_equal_plain(dev, n):
     a = _field(n, (n, 4), dev)
     a[:: max(1, n // 5)] = 0               # zeros map to zero in both
@@ -124,12 +140,77 @@ def test_ext_inverse_kernels_equal_plain(dev, n):
     assert torch.equal(ext.mul(got[nz], a[nz]), one.expand(int(nz.sum()), 4))
 
 
+def test_ext_batch_inv_zero_chunks_warps_and_blocks(dev):
+    """Zeros at a thread's chunk, a warp and a whole block, and at the
+    edges between them, next to nonzero elements; a (rows, n, 4) view
+    with non-contiguous rows."""
+    threads = _cu_int("ext_inv.cu", "THREADS")
+    blk = _EXT_BLOCK
+    a = _field(7, (4 * blk + 5, 4), dev)
+    a[blk - 1] = a[blk] = 0
+    for c in range(blk // threads):
+        a[blk + c * threads:blk + c * threads + 32] = 0   # warp 0, block 1
+        a[blk + c * threads + 40] = 0                     # thread 40's chunk
+    a[2 * blk:3 * blk] = 0                                # block 2
+    assert torch.equal(ext.batch_inv(a), ext.batch_inv_plain(a))
+    rows = _field(8, (6, 300, 4), dev)[::2]
+    assert torch.equal(ext.batch_inv(rows), ext.batch_inv_plain(rows))
+
+
 @pytest.mark.parametrize("rows,n", [(1, 1), (3, 7), (64, 1 << 12),
-                                    (2, 100003)])
+                                    (2, 100003), (0, 16), (1, 5),
+                                    (1, _EVAL_SPAN - 1), (2, _EVAL_SPAN),
+                                    (2, 3 * _EVAL_SPAN + 5)])
 def test_eval_poly_at_kernel_equals_plain(dev, rows, n):
     c = _field(rows + n, (rows, n), dev)
     pt = int(bb.to_mont_host(np.array([987654321]))[0])
     assert torch.equal(ntt.eval_poly_at(c, pt), ntt.eval_poly_at_plain(c, pt))
+
+
+def test_eval_poly_at_non_contiguous_rows_and_edge_points(dev):
+    """Rows that start unaligned (no 16-byte loads), every other row, a
+    strided last axis; every coefficient and the point p - 1; the points
+    0 and one, and a 0-dim device point."""
+    c = _field(3, (4, 2 * _EVAL_SPAN + 9), dev)
+    pt = int(bb.to_mont_host(np.array([123456789]))[0])
+    for view in (c[:, 1:], c[::2], c[:, ::3], c[1:, 3:-2]):
+        assert torch.equal(ntt.eval_poly_at(view, pt),
+                           ntt.eval_poly_at_plain(view, pt))
+    worst = torch.full((3, _EVAL_SPAN + 7), bb.P - 1, dtype=torch.int32,
+                       device=dev)
+    for x in (bb.P - 1, 0, bb.MONT_ONE):
+        assert torch.equal(ntt.eval_poly_at(worst, x),
+                           ntt.eval_poly_at_plain(worst, x))
+    x = torch.tensor(pt, dtype=torch.int32, device=dev)
+    assert torch.equal(ntt.eval_poly_at(c, x), ntt.eval_poly_at_plain(c, pt))
+
+
+def test_eval_poly_at_row_of_several_chunks_a_block(dev):
+    """A row of more than MAX_SPLITS chunks (2^28 and more coefficients)
+    takes several chunks a block."""
+    n = _cu_int("poly_eval.cu", "MAX_SPLITS") * _EVAL_SPAN + 5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    c = torch.randint(0, bb.P, (1, n), generator=gen, dtype=torch.int32,
+                      device=dev)
+    pt = int(bb.to_mont_host(np.array([31337]))[0])
+    assert torch.equal(ntt.eval_poly_at(c, pt), ntt.eval_poly_at_plain(c, pt))
+
+
+def test_eval_poly_at_device_point_makes_no_sync(dev):
+    """A 0-dim CUDA point goes to the kernel by pointer: the call builds
+    no host table, uploads nothing and never syncs with the card."""
+    c = _field(4, (64, 1 << 16), dev)
+    x = torch.tensor(int(bb.to_mont_host(np.array([5]))[0]),
+                     dtype=torch.int32, device=dev)
+    ntt.eval_poly_at(c, x)                 # the kernel library loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ntt.eval_poly_at(c, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, ntt.eval_poly_at_plain(c, x.cpu()))
 
 
 def test_eval_poly_at_counts_only_its_launches(dev):
@@ -138,6 +219,10 @@ def test_eval_poly_at_counts_only_its_launches(dev):
     assert kernels.LAUNCHES["eval_poly_at"] == 0
     ntt.eval_poly_at(_field(1, (1, 16), dev), 5)
     assert kernels.LAUNCHES["eval_poly_at"] == 1
+    ntt.eval_poly_at(_field(2, (64, 3 * _EVAL_SPAN), dev), 5)
+    assert kernels.LAUNCHES["eval_poly_at"] == 2
+    ext.batch_inv(_field(3, (3 * _EXT_BLOCK, 4), dev))
+    assert kernels.LAUNCHES["ext_batch_inv"] == 1
 
 
 @pytest.mark.parametrize("n,w", [(1, 1), (31, 33), (64, 1), (1000, 278)])
@@ -209,12 +294,6 @@ def test_launches_are_counted_only_on_the_card(dev):
     ntt.ntt(x)
     ntt.ntt(x.cpu())
     assert kernels.LAUNCHES["ntt"] == 1
-
-
-def _cu_int(src: str, name: str) -> int:
-    """A `constexpr int` of a kernel source."""
-    text = (kernels.CSRC / src).read_text()
-    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
 # K7's block: THREADS x CHUNK elements

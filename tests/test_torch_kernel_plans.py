@@ -2,7 +2,9 @@
 lazy 64-bit sums of K3 (modular matmul) and K6 (the AIR constraints'
 alpha combination), the batched inversions of K7 (with its divisor
 entry) and K8 (the DEEP codeword, with its lazy sums), K11's power
-chains and chunk sums and K10's forest plan, rehearsed on the CPU.
+chains and chunk sums, K10's forest plan, and the test-only
+`ext_batch_inv` (K7's block scan in the extension) and `eval_poly_at`
+(split rows, powers made on the card), rehearsed on the CPU.
 
 The CUDA kernels take their pass plans from the Python wrappers
 (`ntt.ntt_plan`, `ntt.radix_rounds`, the twiddle tables, and
@@ -1195,3 +1197,328 @@ def test_kernel_plan_sizes():
             _K10["FOREST_LEVELS"]) == (merkle.FOREST_SEGS,
                                        merkle.FOREST_THREADS,
                                        merkle.FOREST_LEVELS)
+
+
+# ---------------------------------------------------------------------------
+# ext_batch_inv (csrc/ext_inv.cu) and eval_poly_at (csrc/poly_eval.cu)
+# ---------------------------------------------------------------------------
+#
+# `k_ext_batch_inv` is K7's block inversion in F_p[x]/(x^4 - 11): a block
+# of THREADS x CHUNK elements shares one ext inverse.  `k_eval_poly_at`
+# splits each row into spans of SPAN coefficients, one block a span, and
+# makes the powers of the point itself.  The models run both plans in
+# numpy uint64 with the sizes read from the sources: the lazy ext
+# products (`ext_mul_w`), the shuffle scans in the kernel's order, the
+# binary powers and each thread's start, the quads' lazy sums and the
+# rows' partial sums; `_mad` fails on a wrap of 2^64.
+
+_EXT = _cu_constants("ext_inv.cu")
+_EXT_BLOCK = _EXT["THREADS"] * _EXT["CHUNK"]
+_PE = _cu_constants("poly_eval.cu")
+_PE_STRIDE = 1 << _PE["LOG_STRIDE"]
+_PE_SPAN = _PE["ITERS"] * _PE_STRIDE
+_ONE_E = np.array([bb.MONT_ONE, 0, 0, 0], dtype=np.uint64)
+
+
+def _ext_mul_w(a, b):
+    """`ext_mul_w` with wb = W b (`times_w`): per coordinate four raw
+    products summed lazily (the kernel's innermost first), one fold and
+    one reduction."""
+    wb = [None] + [_mont(b[..., m], _W_M) for m in (1, 2, 3)]
+    A = [a[..., m] for m in range(4)]
+    B = [b[..., m] for m in range(4)]
+
+    def lazy(terms):
+        acc = np.zeros(A[0].shape, dtype=np.uint64)
+        for x, y in reversed(terms):
+            acc = _mad(acc, x, y)
+        return _redc(_fold(acc))
+
+    return np.stack([
+        lazy([(A[0], B[0]), (A[1], wb[3]), (A[2], wb[2]), (A[3], wb[1])]),
+        lazy([(A[0], B[1]), (A[1], B[0]), (A[2], wb[3]), (A[3], wb[2])]),
+        lazy([(A[0], B[2]), (A[1], B[1]), (A[2], B[0]), (A[3], wb[3])]),
+        lazy([(A[0], B[3]), (A[1], B[2]), (A[2], B[1]), (A[3], B[0])])],
+        axis=-1)
+
+
+def _ext_inverse(a):
+    """`ext_inverse`: the norm trick with the Frobenius constants."""
+    from ethrex_tpu_torch.ops import ext
+
+    fr = ext._FR_ALL.astype(np.uint64).reshape(3, 4)
+    c1, c2, c3 = (_mont(a, fr[k]) for k in range(3))
+    conj = _ext_mul_m(_ext_mul_m(c1, c2), c3)
+    tail = _add(_add(_mont(a[..., 1], conj[..., 3]),
+                     _mont(a[..., 2], conj[..., 2])),
+                _mont(a[..., 3], conj[..., 1]))
+    norm = _add(_mont(a[..., 0], conj[..., 0]), _mont(tail, _W_M))
+    inv = _mpow(norm, bb.P - 2)
+    return _mont(conj, inv[..., None])
+
+
+def _ext_scans(v, lanes: int):
+    """`warp_scans` over the 32 lanes of axis -2 (lanes below `lanes`
+    scanned): inclusive prefix and suffix products, the shuffled value
+    set to one where its lane does not exist."""
+    inc, suf = v.copy(), v.copy()
+    idx = np.arange(32)
+    d = 1
+    while d < lanes:
+        u = np.concatenate([inc[..., :1, :].repeat(d, -2), inc[..., :-d, :]],
+                           -2)
+        w = np.concatenate([suf[..., d:, :], suf[..., -1:, :].repeat(d, -2)],
+                           -2)
+        u = np.where((idx < d)[:, None], _ONE_E, u)
+        w = np.where((idx + d >= 32)[:, None], _ONE_E, w)
+        inc, suf = _ext_mul_w(inc, u), _ext_mul_w(suf, w)
+        d <<= 1
+    return inc, suf
+
+
+def model_k_ext_batch_inv(a):
+    """`k_ext_batch_inv` over a (n, 4) uint64 Montgomery: element
+    block * THREADS * CHUNK + c * THREADS + t is thread t's element c;
+    returns the inverses, 0 for 0."""
+    T, C = _EXT["THREADS"], _EXT["CHUNK"]
+    warps = T // 32
+    n = a.shape[0]
+    nb = -(-n // (T * C))
+    full = np.zeros((nb * T * C, 4), dtype=np.uint64)
+    full[:n] = a                                # past n: zero, left out
+    v = full.reshape(nb, C, T, 4).transpose(0, 2, 1, 3)   # [blk, t, c]
+    zero = ~v.any(-1)
+    pre = np.empty_like(v)
+    run = np.broadcast_to(_ONE_E, (nb, T, 4)).copy()
+    for c in range(C):
+        pre[:, :, c] = run
+        run = _ext_mul_w(run, np.where(zero[:, :, c, None], _ONE_E,
+                                       v[:, :, c]))
+    inc, suf = _ext_scans(run.reshape(nb, warps, 32, 4), 32)
+    one = np.broadcast_to(_ONE_E, (nb, warps, 1, 4))
+    before = np.concatenate([one, inc[:, :, :-1]], 2)
+    after = np.concatenate([suf[:, :, 1:], one], 2)
+    # warp 0: the warps' products on its first lanes, one elsewhere
+    wt = np.broadcast_to(_ONE_E, (nb, 32, 4)).copy()
+    wt[:, :warps] = inc[:, :, 31]
+    wi, ws = _ext_scans(wt, warps)
+    wb = np.concatenate([np.broadcast_to(_ONE_E, (nb, 1, 4)), wi[:, :-1]], 1)
+    wa = np.concatenate([ws[:, 1:], ws[:, -1:]], 1)
+    f = _ext_inverse(wi[:, warps - 1])[:, None]
+    f = _ext_mul_w(_ext_mul_w(np.broadcast_to(f, wb.shape), wb), wa)
+    inv = _ext_mul_w(_ext_mul_w(np.broadcast_to(
+        f[:, :warps, None], before.shape), before), after).reshape(nb, T, 4)
+    out = np.zeros_like(v)
+    for c in range(C - 1, -1, -1):
+        out[:, :, c] = np.where(zero[:, :, c, None], 0,
+                                _ext_mul_w(pre[:, :, c], inv))
+        inv = _ext_mul_w(np.where(zero[:, :, c, None], _ONE_E, v[:, :, c]),
+                         inv)
+    return out.transpose(0, 2, 1, 3).reshape(-1, 4)[:n]
+
+
+def _ext_field(n, seed, zeros: bool):
+    """(n, 4) ext elements; with zeros, zero elements at chunk, warp and
+    block edges, an all-zero thread chunk, warp and block."""
+    a = _field(seed, (n, 4)).astype(np.uint64)
+    a[~a.any(-1)] = _ONE_E
+    if not zeros:
+        return a
+    T, C, blk = _EXT["THREADS"], _EXT["CHUNK"], _EXT_BLOCK
+    a[::max(1, n // 5)] = 0
+    a[min(31, n - 1)] = a[min(32, n - 1)] = 0      # a warp's edge
+    if n > blk:
+        a[blk - 1] = a[blk] = 0                    # a block's edge
+    if n > 2 * blk:
+        for c in range(C):
+            a[blk + c * T:blk + c * T + 32] = 0    # warp 0 of block 1
+            a[blk + c * T + 40] = 0                # thread 40's chunk
+        a[2 * blk:min(n, 3 * blk)] = 0             # a whole block
+    return a
+
+
+@pytest.mark.parametrize("n", [1, 33, _EXT_BLOCK - 1, _EXT_BLOCK,
+                               _EXT_BLOCK + 1])
+def test_ext_batch_inv_model_equals_jax_batch_inv(n):
+    """Nonzero elements (the reference's contract): n below, at and
+    above a block's span, a ragged last block."""
+    from ethrex_tpu.ops import ext as jext
+
+    a = _ext_field(n, n + 11, zeros=False)
+    got = model_k_ext_batch_inv(a)
+    want = np.asarray(jext.batch_inv(a.astype(np.uint32)))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("n", [31, _EXT_BLOCK + 1, 3 * _EXT_BLOCK + 17])
+def test_ext_batch_inv_model_with_zeros_equals_elementwise(n):
+    """Zeros left out and mapped to 0, an all-zero chunk, warp and block
+    among them: each element as the JAX package's element-wise inverse
+    gives it."""
+    from ethrex_tpu.ops import ext as jext
+
+    a = _ext_field(n, n + 3, zeros=True)
+    got = model_k_ext_batch_inv(a)
+    want = np.asarray(jext.ext_inv_device(a.astype(np.uint32)))
+    assert np.array_equal(got.astype(np.uint32), want)
+    assert not got[~a.any(-1)].any()
+
+
+def test_ext_batch_inv_model_worst_case_words():
+    """Every word p - 1 (the largest raw products of the lazy sums), and
+    one: still the reference's inverses."""
+    from ethrex_tpu.ops import ext as jext
+
+    a = np.full((_EXT_BLOCK + 3, 4), bb.P - 1, dtype=np.uint64)
+    a[1::2] = _ONE_E
+    got = model_k_ext_batch_inv(a)
+    want = np.asarray(jext.batch_inv(a.astype(np.uint32)))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+def _shfl_down_tree(v, steps):
+    """A tree of shuffles down the last axis (32 lanes): at distance o
+    lane l adds lane l + o's value times w (l + o past the warp: its
+    own value, as the shuffle returns it), for (o, w) in steps."""
+    lanes = np.arange(32)
+    for o, w in steps:
+        src = np.concatenate([v[..., o:], v[..., 32 - o:]], -1)
+        src = np.where(lanes + o < 32, src, v)
+        v = _add(v, _mont(src, w))
+    return v
+
+
+def model_k_eval_poly_at(coeffs, x_m: int, max_splits=None):
+    """`k_eval_poly_at` over coeffs (rows, n) uint64 Montgomery at the
+    Montgomery point x_m -> (rows,) Montgomery; `max_splits` (the
+    source's MAX_SPLITS by default) set lower makes spans of several
+    chunks at small n."""
+    T, iters, lg = _PE["THREADS"], _PE["ITERS"], _PE["LOG_STRIDE"]
+    max_splits = max_splits or _PE["MAX_SPLITS"]
+    warps = T // 32
+    assert _PE_STRIDE == 4 * T
+    rows, n = coeffs.shape
+    if rows == 0 or n == 0:
+        return np.zeros(rows, dtype=np.uint64)
+    chunks = -(-n // _PE_SPAN)
+    mult = -(-chunks // max_splits)
+    splits = -(-chunks // mult)
+    L = max((splits * mult * _PE_SPAN - 1).bit_length(), lg + 1)
+    assert L <= _PE["MAX_BITS"]
+    # thread 0: the binary powers and the block's factor on one pass
+    first = np.arange(splits, dtype=np.int64) * mult * _PE_SPAN
+    pw, a = [], np.uint64(x_m % bb.P)
+    factor = np.full(splits, _ONE, dtype=np.uint64)
+    for j in range(L):
+        pw.append(a)
+        factor = np.where((first >> j) & 1 == 1, _mont(factor, a), factor)
+        a = _mont(a, a)
+    x = [_ONE, pw[0], pw[1], _mont(pw[0], pw[1])]
+    v = np.zeros((rows, splits, T), dtype=np.uint64)
+    for ch in range(mult - 1, -1, -1):          # Horner over the quads,
+        i0 = (first + ch * _PE_SPAN)[:, None] + 4 * np.arange(T)[None, :]
+        for k in range(iters - 1, -1, -1):      # the last first
+            i = i0 + k * _PE_STRIDE
+            q = np.zeros_like(v)
+            for j in (3, 2, 1, 0):              # the innermost first
+                cj = np.where(i + j < n,
+                              coeffs[:, np.minimum(i + j, n - 1)], 0)
+                q = _mad(q, cj, np.broadcast_to(x[j], cj.shape))
+            v = _add(_mont(v, pw[lg]), _redc(_fold(q)))
+    # lanes weigh x^(4 l) in a warp, warps x^(128 w) in the block
+    v = _shfl_down_tree(v.reshape(rows, splits, warps, 32),
+                        [(16 >> k, pw[6 - k]) for k in range(5)])
+    w = np.zeros((rows, splits, 32), dtype=np.uint64)
+    w[..., :warps] = v[..., 0]
+    d, steps = warps // 2, []
+    while d:
+        steps.append((d, pw[lg - 1 - len(steps)]))
+        d //= 2
+    w = _shfl_down_tree(w, steps)
+    block = _mont(w[..., 0], factor)
+    # the row's word: 2^48 a block plus its residue, one 64-bit add each;
+    # the count must not reach the sum's bits nor the sum the count's
+    words = [sum((1 << 48) + int(b) for b in row) for row in block]
+    mask = (1 << 48) - 1
+    assert all(w < 2**64 and w >> 48 == splits for w in words)
+    assert all((w & mask) == sum(int(b) for b in row)
+               for w, row in zip(words, block))
+    return np.array([w & mask for w in words], dtype=np.uint64) % P
+
+
+@pytest.mark.parametrize("rows,n,worst", [
+    (0, 16, False), (1, 1, False), (3, 7, False), (1, _PE_SPAN - 1, False),
+    (2, _PE_SPAN, False), (2, 3 * _PE_SPAN + 5, False),
+    (2, 2 * _PE_SPAN + 3, True)])
+def test_eval_poly_at_model_equals_jax(rows, n, worst):
+    """Rows 0 and 1, n below and at a span, a row split over several
+    blocks with a tail, and every coefficient and the point p - 1."""
+    import jax.numpy as jnp
+
+    c = _field(rows * 31 + n, (rows, n)).astype(np.uint64)
+    x = int(_field(n, (1,))[0])
+    if worst:
+        c[...] = bb.P - 1
+        x = bb.P - 1
+    got = model_k_eval_poly_at(c, x)
+    want = np.asarray(jntt.eval_poly_at(jnp.asarray(c.astype(np.uint32)),
+                                        jnp.uint32(x)))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("max_splits,n", [(2, 5 * _PE_SPAN + 3),
+                                          (3, 7 * _PE_SPAN)])
+def test_eval_poly_at_model_spans_of_several_chunks(max_splits, n):
+    """A row needing more than MAX_SPLITS spans takes several chunks a
+    span (at a lowered MAX_SPLITS here, the kernel's at 2^28 and more
+    coefficients a row): Horner runs on over the chunks, last first."""
+    import jax.numpy as jnp
+
+    c = _field(n, (2, n)).astype(np.uint64)
+    x = int(_field(n + 1, (1,))[0])
+    got = model_k_eval_poly_at(c, x, max_splits)
+    want = np.asarray(jntt.eval_poly_at(jnp.asarray(c.astype(np.uint32)),
+                                        jnp.uint32(x)))
+    assert np.array_equal(got.astype(np.uint32), want)
+
+
+def test_eval_poly_at_model_at_zero_and_one():
+    """x = 0 gives each row's c_0 (every other power is 0); x = one the
+    sum of the row."""
+    c = _field(5, (2, _PE_SPAN + 9)).astype(np.uint64)
+    assert np.array_equal(model_k_eval_poly_at(c, 0), c[:, 0])
+    assert np.array_equal(model_k_eval_poly_at(c, bb.MONT_ONE),
+                          c.sum(axis=1) % P)
+
+
+@pytest.mark.parametrize("splits", [1, 16, 3000, 1 << 20])
+def test_eval_poly_at_index_bits_cover_every_start(splits):
+    """A block keeps L binary powers: the bits of every span's first
+    index (its factor), x^STRIDE (Horner over the quads) and the trees'
+    weights x^(4 d) and x^(128 d); the bits of an index give it back, and
+    the weights of a thread's quads, lane and warp add up to its index
+    in the span."""
+    T, lg = _PE["THREADS"], _PE["LOG_STRIDE"]
+    L = max((splits * _PE_SPAN - 1).bit_length(), lg + 1)
+    assert L <= _PE["MAX_BITS"] and 6 < L
+    first = np.arange(min(splits, 1 << 12), dtype=np.int64) * _PE_SPAN
+    first = np.concatenate([first, [(splits - 1) * _PE_SPAN]])
+    back = sum(((first >> j) & 1) << j for j in range(L))
+    assert np.array_equal(back, first)
+    t, k = np.arange(T), np.arange(_PE["ITERS"])
+    lane, warp = t % 32, t // 32
+    idx = k[:, None] * _PE_STRIDE + 4 * lane[None, :] + 128 * warp[None, :]
+    assert np.array_equal(np.sort(idx.ravel()), np.arange(0, _PE_SPAN, 4))
+
+
+def test_inv_eval_plan_sizes():
+    """The sizes both models assume are the sources'."""
+    assert _EXT["THREADS"] % 32 == 0 and _EXT["THREADS"] // 32 <= 32
+    assert _PE["THREADS"] % 32 == 0 and _PE_STRIDE == 4 * _PE["THREADS"]
+    # a row's word: a 16-bit count of its blocks over the 48-bit sum of
+    # their residues
+    assert _PE["MAX_SPLITS"] < 2**16
+    assert _PE["MAX_SPLITS"] * (bb.P - 1) < 2**48
+    # a quad's lazy sum and a thread's folded sum never wrap
+    q = (bb.P - 1) ** 2
+    assert 4 * q < 2**64 and (1 << 60) + q < 2**64
