@@ -6,6 +6,17 @@ Phases:
   1. the card's name and power limit (nvidia-smi); the Groth16 wrap's key
      setup (host bignum work, minutes) starts in a child process and runs
      beside every later phase;
+  1b. the native host engines (ethrex_tpu_torch/native: Keccak-256,
+     secp256k1 recovery, the MPT merkleizer, the EVM's frame-local loop)
+     built with gcc/g++ at the reference's flags, one compiler each, all
+     started together (the compiler's version and each build's seconds
+     logged); in a child process beside the kernel phases, each is held
+     against its Python oracle on the card's host: Keccak on 10,000
+     seeded messages of 0-400 bytes, 1,000 recoveries (100 of them
+     invalid signatures), a sequence of random MPT batches, and the EF
+     fork ladder's 344 Prague cases with the native loop forced
+     (ETHREX_TPU_NATIVE_EVM=1, in a process of its own); any mismatch
+     fails the run before phase 4, which executes with the engines on;
   2. build the CUDA kernels K1-K11 and slice 4's four (ext_inv,
      ext_batch_inv, eval_poly_at, to_mont_cols) from ethrex_tpu_torch/csrc
      and the generated AIR constraint kernels (K6) of the path's six AIRs
@@ -128,9 +139,11 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -193,6 +206,9 @@ EARLIER_MS = {"ntt": 15.396, "poseidon2_hash_leaves": 32.044,
               "quotient_combine": 1.567, "merkle_batched_level": 1.683,
               "ext_poly_eval": 0.814, "ext_batch_inv": 0.057,
               "eval_poly_at": 0.150}
+# the EF fork ladder's Prague cases (tests/fixtures/ef_state/forks)
+EF_PRAGUE_CASES = 344
+HOST_SWITCHES = ("ETHREX_TPU_NATIVE_EVM", "ETHREX_TPU_NATIVE_MPT")
 # kernels the groth16 paths need not launch: the reference's test-only
 # helpers (no path of the system runs them) and the fused step's own
 NOT_ON_GROTH16_PATHS = ("ext_inv", "ext_batch_inv", "eval_poly_at",
@@ -2755,6 +2771,186 @@ def fused_step(dev) -> dict:
     return dict(rows=rows, launches=launches)
 
 
+def build_host_engines() -> dict:
+    """Build and load the four native host engines
+    (`ethrex_tpu_torch/native`), one compiler process each, all started
+    together; the main path runs with them on, so neither switch may be
+    set."""
+    import threading
+
+    from ethrex_tpu_torch import native
+    from ethrex_tpu_torch.crypto import keccak, native_secp256k1
+    from ethrex_tpu_torch.evm import native_vm
+    from ethrex_tpu_torch.trie import native_mpt
+
+    on = [v for v in HOST_SWITCHES if os.environ.get(v) not in (None, "")]
+    if on:
+        raise AssertionError(f"the smoke runs the host engines on: unset "
+                             f"{on}")
+    compilers = {c: subprocess.run([c, "--version"], capture_output=True,
+                                   text=True, check=True
+                                   ).stdout.splitlines()[0]
+                 for c in ("gcc", "g++")}
+    t0 = time.perf_counter()
+    errors = []
+
+    def one(name):
+        try:
+            native.build(name)
+        except Exception as e:           # re-raised below, in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(name,))
+               for name in native.ENGINES]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    wall = time.perf_counter() - t0
+    for probe in (keccak.available, native_secp256k1.available,
+                  native_mpt.available, native_vm.available):
+        if probe() is not True:
+            raise AssertionError(f"{probe.__module__} did not load")
+    build_s = {name: (round(native.BUILD_S[name], 3)
+                      if name in native.BUILD_S else "stamp matched")
+               for name in native.ENGINES}
+    log(f"[host] {compilers['gcc']}; {compilers['g++']}; the four host "
+        f"engines built and loaded in {wall:.3f} s, compile s each "
+        f"{json.dumps(build_s)}; loaded {native.loaded()}")
+    return dict(compilers=compilers, build_s=build_s, build_wall_s=wall)
+
+
+def host_engines_job() -> dict:
+    """Runs in a child on the card's host: each native host engine against
+    its Python oracle, timed.  Raises on any mismatch."""
+    torch.set_num_threads(1)
+    from ethrex_tpu_torch.crypto import keccak
+    from ethrex_tpu_torch.crypto import native_secp256k1 as nsecp
+    from ethrex_tpu_torch.crypto import secp256k1 as secp
+    from ethrex_tpu_torch.primitives.account import EMPTY_TRIE_ROOT
+    from ethrex_tpu_torch.trie.native_mpt import NativeMpt
+    from ethrex_tpu_torch.trie.trie import Trie
+
+    rng = np.random.default_rng(SEED + 13)
+    out = {}
+
+    def timed(fn, items):
+        t0 = time.perf_counter()
+        got = [fn(*it) for it in items]
+        return got, time.perf_counter() - t0
+
+    msgs = [(bytes(rng.integers(0, 256, int(n), dtype=np.uint8)),)
+            for n in rng.integers(0, 401, 10_000)]
+    got, t_nat = timed(keccak.keccak256, msgs)
+    want, t_py = timed(keccak._keccak256_py, msgs)
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"keccak: message {bad} of "
+                             f"{len(msgs[bad][0])} bytes differs")
+    out["keccak"] = dict(messages=len(msgs), native_s=t_nat, python_s=t_py)
+
+    items = []
+    for i in range(1000):
+        secret = int.from_bytes(bytes(rng.integers(0, 256, 32,
+                                                   dtype=np.uint8)),
+                                "big") % (secp.N - 1) + 1
+        msg = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+        r, s, rec = secp.sign(msg, secret)
+        if i % 10 == 9:                  # an invalid signature of a kind
+            r, s, rec = [(0, s, rec), (r, 0, rec), (secp.N, s, rec),
+                         (r, secp.N + 1, rec), (r, s, 2), (r, s, 3),
+                         (r, s, 4), (5, s, rec), (r + 1, s, rec),
+                         (1 << 256, s, rec)][(i // 10) % 10]
+        items.append((msg, r, s, rec))
+    got, t_nat = timed(nsecp.recover, items)
+    want, t_py = timed(secp.recover, items)
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"secp256k1: recovery {bad} differs")
+    if nsecp.recover_batch(items) != [
+            None if p is None else p[0].to_bytes(32, "big")
+            + p[1].to_bytes(32, "big") for p in want]:
+        raise AssertionError("secp256k1: recover_batch differs")
+    out["secp256k1"] = dict(recoveries=len(items),
+                            rejected=sum(p is None for p in want),
+                            native_s=t_nat, python_s=t_py)
+
+    table, py_table = {}, {}
+    root = py_root = EMPTY_TRIE_ROOT
+    engine = NativeMpt()
+    live = []
+    t_nat = t_py = 0.0
+    for batch in range(8):
+        ops = []
+        for _ in range(500):
+            k = keccak.keccak256(bytes(rng.integers(0, 256, 32,
+                                                    dtype=np.uint8)))
+            ops.append((k, bytes(rng.integers(0, 256,
+                                              int(rng.integers(1, 80)),
+                                              dtype=np.uint8))))
+            live.append(k)
+        ops += [(live.pop(int(rng.integers(0, len(live)))), b"")
+                for _ in range(150)]
+        t0 = time.perf_counter()
+        root = engine.apply(table, root, ops)
+        t_nat += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        t = Trie.from_nodes(py_root, py_table, share=True)
+        for k, v in ops:
+            if v:
+                t.insert(k, v)
+        for k, v in ops:
+            if not v:
+                t.remove(k)
+        py_root = t.commit()
+        t_py += time.perf_counter() - t0
+        if root != py_root:
+            raise AssertionError(f"mpt: batch {batch} root differs")
+    out["mpt"] = dict(batches=8, ops=8 * 650, native_s=t_nat,
+                      python_s=t_py)
+
+    forks = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+        "ef_state" / "forks"
+    code = (
+        "import json, time\n"
+        "from ethrex_tpu_torch.utils import ef_state\n"
+        "t0 = time.perf_counter()\n"
+        f"p, f = ef_state.run_directory({str(forks)!r}, 'Prague')\n"
+        "print(json.dumps([len(p), len(f), [r.detail for r in f[:3]],\n"
+        "                  time.perf_counter() - t0]))\n")
+    env = dict(os.environ, ETHREX_TPU_NATIVE_EVM="1")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          cwd=str(Path(__file__).resolve().parent),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the forced Prague ladder failed: "
+                             f"{proc.stderr[-1500:]}")
+    n_pass, n_fail, details, secs = json.loads(
+        proc.stdout.strip().splitlines()[-1])
+    if n_fail or n_pass != EF_PRAGUE_CASES:
+        raise AssertionError(f"the forced Prague ladder: {n_pass} passed, "
+                             f"{n_fail} failed: {details}")
+    out["ef_prague_forced"] = dict(passed=n_pass, seconds=secs)
+    return out
+
+
+def log_host_engines(checks: dict) -> None:
+    k, e, m, p = (checks["keccak"], checks["secp256k1"], checks["mpt"],
+                  checks["ef_prague_forced"])
+    log(f"[host] in a child on the card's host, each engine equals its "
+        f"Python oracle: Keccak on {k['messages']} messages of 0-400 "
+        f"bytes ({k['native_s']:.3f} s native, {k['python_s']:.3f} s "
+        f"Python); {e['recoveries']} secp256k1 recoveries, "
+        f"{e['rejected']} rejected ({e['native_s']:.3f} s, "
+        f"{e['python_s']:.3f} s); {m['batches']} MPT batches of "
+        f"{m['ops'] // m['batches']} operations ({m['native_s']:.3f} s, "
+        f"{m['python_s']:.3f} s); the EF ladder's {p['passed']} Prague "
+        f"cases with the native loop forced passed in {p['seconds']:.3f} "
+        f"s")
+
+
 def build_all() -> None:
     """Every kernel source of the path, one nvcc each, all at once."""
     import threading
@@ -2822,6 +3018,8 @@ def main() -> int:
             max_workers=3,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         keys_future = pool.submit(wrap_keys_job)
+        host = build_host_engines()
+        host_future = pool.submit(host_engines_job)
         build_all()
         rng = np.random.default_rng(SEED)
         rows = check_kernels(dev, rng)
@@ -2835,6 +3033,10 @@ def main() -> int:
         # the fused step needs no wrap keys: it runs while they finish
         fused = fused_step(dev)
         log(f"[phase] fused step done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        host["checks"] = host_future.result()
+        log_host_engines(host["checks"])
+        log(f"[phase] host engine checks done at "
             f"{time.perf_counter() - t_start:.1f} s")
         keys = install_wrap_keys(keys_future)
         mode_future = pool.submit(expected_mode_job, "baseline3")
@@ -2950,7 +3152,9 @@ def main() -> int:
     log(json.dumps({"kernels": out, "fused_step": {
         str(k): {"ms": v["ms"], "bound_ms": v["bound_ms"]}
         for k, v in fused["rows"].items()},
-        "profile_source": prof["source"]}))
+        "profile_source": prof["source"],
+        "host_engines": {**host, "execute_s": executed["stats"]["execute_s"],
+                         "verify_with_input_s": walls}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,19 +1,26 @@
-"""Keccak-256: a batched numpy form and a single-message Python form.
+"""Keccak-256: a native single-message engine, a batched numpy form and a
+single-message Python form.
 
+The trie and the EVM hash one short message at a time, tens of thousands
+of times a batch: `keccak256` calls the C engine `native/keccak.c`,
+built at its first call (`ethrex_tpu_torch.native`; the reference's
+`crypto/keccak.py` dispatches the same way).  `_keccak256_py` is the
+Python form over Python integers, the oracle the engine is held to and
+what module constants hash at import, so that importing builds nothing.
 The challenger's proof-of-work grinding hashes tens of thousands of
-40-byte messages (seed || nonce); `keccak256_batch` runs Keccak-f[1600] on
-a whole batch of equal-length messages in numpy, so the search needs no
-native extension.  The trie and the EVM hash one short message at a time,
-tens of thousands of times a batch, where numpy's per-call overhead would
-dominate: `keccak256` is the reference's pure-Python Keccak over Python
-integers (`ethrex_tpu/crypto/keccak.py _keccak256_py`).  Original Keccak
+40-byte messages (seed || nonce); `keccak256_batch` runs Keccak-f[1600]
+on a whole batch of equal-length messages in numpy.  Original Keccak
 padding (0x01 ... 0x80), rate 136 bytes: the Ethereum keccak256, not
 SHA3-256.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from .. import native
 
 _RATE = 136
 
@@ -114,8 +121,8 @@ def _f1600(st: list) -> None:
         st[0] ^= rc
 
 
-def keccak256(data: bytes) -> bytes:
-    """One message -> its 32-byte digest."""
+def _keccak256_py(data: bytes) -> bytes:
+    """One message -> its 32-byte digest, in Python integers."""
     data = bytes(data)
     st = [0] * 25
     pad_len = _RATE - (len(data) % _RATE)
@@ -127,3 +134,39 @@ def keccak256(data: bytes) -> bytes:
                                     "little")
         _f1600(st)
     return b"".join(st[i].to_bytes(8, "little") for i in range(4))
+
+
+def _bind(lib) -> None:
+    lib.keccak256.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                              ctypes.c_char_p]
+    lib.keccak256.restype = None
+
+
+# the native single-message function, once loaded (None before the first
+# call)
+_fn = None
+
+
+def _load():
+    global _fn
+    c_keccak = native.load("keccak", _bind).keccak256
+
+    def fn(data: bytes) -> bytes:
+        out = ctypes.create_string_buffer(32)
+        c_keccak(data, len(data), out)
+        return out.raw
+
+    _fn = fn
+    return fn
+
+
+def available() -> bool:
+    """True once the native engine is built and loaded; a failed build
+    raises (`native.BuildError`)."""
+    _fn or _load()
+    return True
+
+
+def keccak256(data: bytes) -> bytes:
+    """One message -> its 32-byte digest, by the native engine."""
+    return (_fn or _load())(bytes(data))

@@ -1,9 +1,10 @@
 """secp256k1 ECDSA: recover (the consensus-critical op), sign, verify.
 
-A copy of `ethrex_tpu/crypto/secp256k1.py` on its pure-Python path (the
-reference's own path when its native engine is absent): Jacobian
-arithmetic and a Shamir double-scalar multiply for recovery, RFC 6979
-deterministic nonces for signing.
+A copy of `ethrex_tpu/crypto/secp256k1.py`: Jacobian arithmetic and a
+Shamir double-scalar multiply for recovery (`recover`, the oracle of the
+native engine), RFC 6979 deterministic nonces for signing;
+`recover_address` dispatches to the native engine
+(`crypto/native_secp256k1.py`), as the reference's does.
 """
 
 from __future__ import annotations
@@ -218,8 +219,16 @@ def pubkey_to_address(pubkey) -> bytes:
 
 
 def recover_address(msg_hash: bytes, r: int, s: int, rec_id: int):
-    """Recover the 20-byte sender address, or None."""
-    pub = recover(msg_hash, r, s, rec_id)
-    if pub is None:
+    """Recover the 20-byte sender address, or None.
+
+    Runs in the native engine (same acceptance set, held against
+    ``recover``); ``recover`` above stays pure Python and is the
+    behavioral oracle.
+    """
+    from . import native_secp256k1
+    from .keccak import keccak256
+
+    raw = native_secp256k1.recover_pubkey_bytes(msg_hash, r, s, rec_id)
+    if raw is None:
         return None
-    return pubkey_to_address(pub)
+    return keccak256(raw)[12:]

@@ -1,7 +1,10 @@
-"""EVM interpreter: a copy of `ethrex_tpu/evm/vm.py` on its Python
-dispatch loop (the reference's own loop when its native engine is absent),
-over a journaled StateDB, with fork-gated opcode tables and substate
-checkpointing.
+"""EVM interpreter: a copy of `ethrex_tpu/evm/vm.py` over a journaled
+StateDB, with fork-gated opcode tables and substate checkpointing.  A
+frame of at least `_NATIVE_MIN_CODE` bytes runs in the native loop
+(`evm/native_vm.py`, `native/evm.cpp`), which escapes to the Python
+handlers for state, environment and call opcodes; shorter frames, and
+every frame under ETHREX_TPU_NATIVE_EVM=0, run the Python dispatch loop
+`EVM._run_py`, the oracle of the native loop.
 
 Supported semantics: Frontier → Prague.  Berlin+ uses the EIP-2929
 warm/cold accounting; pre-Berlin forks consult the per-fork `Schedule`
@@ -14,6 +17,7 @@ table (reference: fork-gated const tables, levm/src/opcodes.rs:450-657).
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 
 from ..crypto.keccak import keccak256
@@ -22,6 +26,7 @@ from ..primitives.account import EMPTY_CODE_HASH
 from ..primitives.genesis import ChainConfig, Fork
 from ..primitives.receipt import Log
 from . import gas as G
+from . import native_vm as nv
 from . import precompiles
 from .db import StateDB
 
@@ -337,9 +342,16 @@ class EVM:
     # the dispatch loop
     # ------------------------------------------------------------------
     def _run(self, f: Frame):
+        handlers = _handlers_for(self.fork)
+        if _native_available() and (
+                len(f.code) >= _NATIVE_MIN_CODE or _native_forced()):
+            return self._run_native(f, handlers)
+        return self._run_py(f, handlers)
+
+    def _run_py(self, f: Frame, handlers):
+        """The Python dispatch loop."""
         code = f.code
         n = len(code)
-        handlers = _handlers_for(self.fork)
         while f.pc < n:
             op = code[f.pc]
             handler = handlers[op]
@@ -348,6 +360,45 @@ class EVM:
             f.pc += 1
             handler(self, f)
         raise _Halt(b"")
+
+    def _run_native(self, f: Frame, handlers):
+        """Hybrid dispatch: the C++ loop (native/evm.cpp) runs frame-local
+        opcodes; state/env/call opcodes escape to the canonical Python
+        handlers one at a time and the loop re-enters."""
+        lib = nv._load()
+        nf = nv.NativeFrame(lib, f.code, f.msg.data, f.gas,
+                            self.sched.exp_byte,
+                            _native_mask_for(self.fork))
+        try:
+            while True:
+                rc = nf.run()
+                if rc == nv.HALT_ESCAPE:
+                    nf.pull_into(f)
+                    op = f.code[f.pc]
+                    handler = handlers[op]
+                    if handler is None:
+                        raise InvalidOpcode(hex(op))
+                    f.pc += 1
+                    handler(self, f)   # may raise _Halt / VMError
+                    nf.push_from(f)
+                    continue
+                if rc in (nv.HALT_STOP, nv.HALT_CODE_END):
+                    f.gas = lib.evm_gas(nf.ptr)
+                    raise _Halt(b"")
+                if rc in (nv.HALT_RETURN, nv.HALT_REVERT):
+                    nf.pull_into(f)
+                    off, length = nf.output()
+                    raise _Halt(bytes(f.memory[off:off + length]),
+                                reverted=(rc == nv.HALT_REVERT))
+                if rc == nv.HALT_OOG:
+                    raise OutOfGas("native frame")
+                if rc == nv.HALT_INVALID_JUMP:
+                    raise InvalidJump("native frame")
+                if rc == nv.HALT_STACK:
+                    raise StackError("native frame")
+                raise InvalidOpcode("native frame")
+        finally:
+            nf.close()
 
 
 # ---------------------------------------------------------------------------
@@ -1216,3 +1267,25 @@ def _install():
 
 
 _install()
+
+
+_NATIVE_MIN_CODE = 64
+_NATIVE_MASKS: dict = {}
+
+
+def _native_available() -> bool:
+    # the switch is read at every call, so a test can flip it; the
+    # library loads once (a failed build raises)
+    return nv.available()
+
+
+def _native_forced() -> bool:
+    return nv.forced()
+
+
+def _native_mask_for(fork) -> bytes:
+    mask = _NATIVE_MASKS.get(fork)
+    if mask is None:
+        mask = nv.native_op_mask(fork)
+        _NATIVE_MASKS[fork] = mask
+    return mask

@@ -152,7 +152,7 @@ def execution_program(program_input: ProgramInput,
     """
     from ..blockchain.blockchain import (Blockchain, InvalidBlock,
                                          compute_receipts_root)
-    from ..storage.store import apply_updates_to_tries
+    from ..storage.store import _make_native_engine, apply_updates_to_tries
 
     blocks = program_input.blocks
     witness = program_input.witness
@@ -179,6 +179,7 @@ def execution_program(program_input: ProgramInput,
         headers[hdr.number] = hdr
         chain_cursor = hdr
 
+    native = _make_native_engine()  # per-batch C++ merkleizer (or None)
     chain = Blockchain(program_input.config)
     state_root = initial_root
     prev = parent_header
@@ -213,7 +214,8 @@ def execution_program(program_input: ProgramInput,
         try:
             state_root = apply_updates_to_tries(nodes, codes, state_root,
                                                 state_db,
-                                                write_log=block_log)
+                                                write_log=block_log,
+                                                native=native)
         except MissingNode as e:
             raise StatelessExecutionError(f"witness incomplete: {e}")
         if state_root != block.header.state_root:

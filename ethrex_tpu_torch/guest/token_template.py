@@ -29,7 +29,7 @@ re-pinning the code hash from the witness) lives in
 
 from __future__ import annotations
 
-from ..crypto.keccak import keccak256
+from ..crypto.keccak import _keccak256_py, keccak256
 
 SELECTOR_TRANSFER = bytes.fromhex("a9059cbb")
 SELECTOR_BALANCE_OF = bytes.fromhex("70a08231")
@@ -125,7 +125,7 @@ _PROGRAM = [
 ]
 
 TEMPLATE_CODE = assemble(_PROGRAM)
-TEMPLATE_CODE_HASH = keccak256(TEMPLATE_CODE)
+TEMPLATE_CODE_HASH = _keccak256_py(TEMPLATE_CODE)
 
 
 def balance_slot(holder: bytes) -> int:

@@ -1,18 +1,19 @@
 """Account state types: a copy of `ethrex_tpu/primitives/account.py`
-(the four-field account record and the empty-trie / empty-code hashes)."""
+(the four-field account record, the in-memory account of a genesis
+allocation, and the empty-trie / empty-code hashes)."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..crypto.keccak import keccak256
+from ..crypto.keccak import _keccak256_py, keccak256
 from . import rlp
 
 # keccak256(rlp("")) — root of the empty trie
 EMPTY_TRIE_ROOT = bytes.fromhex(
     "56e81f171bcc55a6ff8345e692c0f86e5b48e01b996cadc001622fb5e363b421"
 )
-EMPTY_CODE_HASH = keccak256(b"")
+EMPTY_CODE_HASH = _keccak256_py(b"")
 
 
 @dataclasses.dataclass
@@ -38,3 +39,21 @@ class AccountState:
     def is_empty(self) -> bool:
         return (self.nonce == 0 and self.balance == 0
                 and self.code_hash == EMPTY_CODE_HASH)
+
+
+@dataclasses.dataclass
+class Account:
+    """Full account: state record + code + storage (in-memory form)."""
+
+    state: AccountState = dataclasses.field(default_factory=AccountState)
+    code: bytes = b""
+    storage: dict = dataclasses.field(default_factory=dict)  # int -> int
+
+    @classmethod
+    def new(cls, nonce=0, balance=0, code=b"", storage=None) -> "Account":
+        return cls(
+            AccountState(nonce=nonce, balance=balance,
+                         code_hash=keccak256(code) if code
+                         else EMPTY_CODE_HASH),
+            code=code, storage=dict(storage or {}),
+        )

@@ -5,12 +5,12 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..crypto.keccak import keccak256
+from ..crypto.keccak import _keccak256_py, keccak256
 from . import rlp
 from .account import EMPTY_TRIE_ROOT
 from .transaction import Transaction
 
-EMPTY_UNCLE_HASH = keccak256(rlp.encode([]))
+EMPTY_UNCLE_HASH = _keccak256_py(rlp.encode([]))
 ZERO_HASH = b"\x00" * 32
 ZERO_ADDR = b"\x00" * 20
 ZERO_BLOOM = b"\x00" * 256

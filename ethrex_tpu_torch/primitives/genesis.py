@@ -1,11 +1,14 @@
-"""Fork schedule and chain configuration: `Fork` and `ChainConfig` of
-`ethrex_tpu/primitives/genesis.py` (its genesis-file `Genesis` belongs to
-the node, not to the prover, and is not copied)."""
+"""Genesis file parsing and fork schedule: `Fork`, `ChainConfig` and
+`Genesis` of `ethrex_tpu/primitives/genesis.py`."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import json
+
+from .account import Account
+from .block import BlockHeader, ZERO_HASH, ZERO_NONCE
 
 
 class Fork(enum.IntEnum):
@@ -145,8 +148,92 @@ class ChainConfig:
         return self.fork_at(block_number, timestamp) >= fork
 
 
+@dataclasses.dataclass
+class Genesis:
+    config: ChainConfig
+    alloc: dict            # address(bytes20) -> Account
+    coinbase: bytes = b"\x00" * 20
+    difficulty: int = 0
+    extra_data: bytes = b""
+    gas_limit: int = 30_000_000
+    nonce: int = 0
+    mix_hash: bytes = ZERO_HASH
+    timestamp: int = 0
+    base_fee_per_gas: int | None = None
+    excess_blob_gas: int | None = None
+    blob_gas_used: int | None = None
+
+    @classmethod
+    def from_json(cls, obj: dict | str) -> "Genesis":
+        if isinstance(obj, str):
+            obj = json.loads(obj)
+        config = ChainConfig.from_json(obj.get("config", {}))
+        alloc = {}
+        for addr_hex, info in obj.get("alloc", {}).items():
+            addr = bytes.fromhex(addr_hex.removeprefix("0x").zfill(40))
+            storage = {
+                int(k, 16): int(v, 16)
+                for k, v in info.get("storage", {}).items()
+            }
+            alloc[addr] = Account.new(
+                nonce=_num(info.get("nonce", 0)),
+                balance=_num(info.get("balance", 0)),
+                code=_hexb(info.get("code", "")),
+                storage=storage,
+            )
+        return cls(
+            config=config, alloc=alloc,
+            coinbase=_hexb(obj.get("coinbase", "0x" + "00" * 20)),
+            difficulty=_num(obj.get("difficulty", 0)),
+            extra_data=_hexb(obj.get("extraData", "")),
+            gas_limit=_num(obj.get("gasLimit", 30_000_000)),
+            nonce=_num(obj.get("nonce", 0)),
+            mix_hash=_hexb(obj.get("mixHash", "0x" + "00" * 32)) or ZERO_HASH,
+            timestamp=_num(obj.get("timestamp", 0)),
+            base_fee_per_gas=_opt_num(obj.get("baseFeePerGas")),
+            excess_blob_gas=_opt_num(obj.get("excessBlobGas")),
+            blob_gas_used=_opt_num(obj.get("blobGasUsed")),
+        )
+
+    def header(self, state_root: bytes) -> BlockHeader:
+        from .account import EMPTY_TRIE_ROOT
+
+        fork = self.config.fork_at(0, self.timestamp)
+        h = BlockHeader(
+            coinbase=self.coinbase, state_root=state_root,
+            difficulty=self.difficulty, number=0, gas_limit=self.gas_limit,
+            gas_used=0, timestamp=self.timestamp, extra_data=self.extra_data,
+            prev_randao=self.mix_hash,
+            nonce=self.nonce.to_bytes(8, "big") if self.nonce else ZERO_NONCE,
+        )
+        if fork >= Fork.LONDON:
+            h.base_fee_per_gas = (self.base_fee_per_gas
+                                  if self.base_fee_per_gas is not None
+                                  else 1_000_000_000)
+        if fork >= Fork.SHANGHAI:
+            h.withdrawals_root = EMPTY_TRIE_ROOT
+        if fork >= Fork.CANCUN:
+            h.blob_gas_used = self.blob_gas_used or 0
+            h.excess_blob_gas = self.excess_blob_gas or 0
+            h.parent_beacon_block_root = ZERO_HASH
+        if fork >= Fork.PRAGUE:
+            import hashlib
+            h.requests_hash = hashlib.sha256(b"").digest()  # empty requests
+        return h
+
+
 def _num(v) -> int:
     if isinstance(v, int):
         return v
     v = str(v)
     return int(v, 16) if v.startswith("0x") else int(v or "0")
+
+
+def _opt_num(v):
+    return None if v is None else _num(v)
+
+
+def _hexb(v) -> bytes:
+    if not v:
+        return b""
+    return bytes.fromhex(str(v).removeprefix("0x"))
