@@ -52,13 +52,24 @@ Phases:
      time and call, warm and with L2 flushed, beside an empty kernel's
      launch floor, with their ptxas) and to_mont_cols on the
      TransferAir trace (2^20 x 278);
+  3b. the node that feeds the prover, on the host (`[node]` lines): the
+     port's `Node` builds BASELINE-3 (`fixtures.build`: 4 blocks of 125
+     ETH transfers and 125 token calls, produced with `produce_block`,
+     then `generate_witness`), with the wall of each `produce_block`, of
+     `generate_witness` and of the whole build; its canonical JSON must
+     hash to the committed fixture's sha256; the five EF BlockchainTest
+     units (tests/fixtures/ef_blockchain) pass through the port's block
+     import; BASELINE-1's 10 transfers go through the mempool into one
+     block, whose canonical JSON must hash to
+     `fixtures.build.BASELINE1_SHA256`;
   4. the main path, with the launch counts zeroed just before and read
      just after (K6's combine kernels once per constraint group of each
      STARK, its block form never): a minimal proof coordinator started
      here on 127.0.0.1 (the port's wire framing, the reference's bytes)
-     hands the committed BASELINE-3 ProgramInput (ethrex_tpu_torch/
-     fixtures: 1,000 transactions over 4 blocks, 500 ETH transfers and
-     500 token calls, with their witness) at groth16 to the port's
+     hands the BASELINE-3 ProgramInput that phase 3b's node built (1,000
+     transactions over 4 blocks, 500 ETH transfers and 500 token calls,
+     with their witness; byte-equal to ethrex_tpu_torch/fixtures') at
+     groth16 to the port's
      `prover.client.ProverClient(backend, [(host, port)]).poll_once()`
      (its pre-warm done, heartbeats on, ETHREX_PROOF_CKPT_OFF=1), which
      proves it through `GpuBackend(device=dev).prove` and submits it; the
@@ -76,7 +87,11 @@ Phases:
      reference's (`baseline3_expected.json`); in a child process, beside
      the later phases, `GpuBackend(device="cpu").verify_with_input`
      accepts that proof and rejects it with one output byte flipped and
-     with its `vm` metadata removed, with its walls.  Then the
+     with its `vm` metadata removed, with its walls.  Then BASELINE-1,
+     the only single-block, transfer-mode batch, as the node built it:
+     `GpuBackend(device=dev).prove(pi, "stark")`, its counts zeroed just
+     before and read just after, its mode `transfer`, and in a child
+     `GpuBackend(device="cpu").verify` accepts it.  Then the
      synthesized VM-mode batch,
      the only path with a generic call, its counts zeroed just before
      and read just after: `prover.gpu_backend.prove_vm_stages(...,
@@ -2175,21 +2190,91 @@ def smoke_backend(dev, stats, traces, artifacts):
     return SmokeBackend(device=dev)
 
 
-def expected_mode_job(name: str):
-    """Runs in a child: the committer's classifier over the fixture (a
+def expected_mode_job(pi_json: dict):
+    """Runs in a child: the committer's classifier over the batch (a
     stateless re-execution, host Python)."""
     torch.set_num_threads(1)
-    from ethrex_tpu_torch import fixtures
+    from ethrex_tpu_torch.guest.execution import ProgramInput
     from ethrex_tpu_torch.prover import gpu_backend
 
     t0 = time.perf_counter()
-    mode = gpu_backend.expected_vm_mode(fixtures.load_program_input(name))
+    mode = gpu_backend.expected_vm_mode(ProgramInput.from_json(pi_json))
     return mode, time.perf_counter() - t0
 
 
-def executed_path(dev, mode_future) -> dict:
-    """The main path: the committed BASELINE-3 ProgramInput (1,000
-    transactions over 4 blocks) pulled from `SmokeCoordinator` by the
+EF_BLOCKCHAIN_UNITS = 5
+
+
+def node_phase() -> dict:
+    """The node that feeds the prover, on the card's host: the port's
+    `Node` builds BASELINE-3 (`fixtures.build.baseline3_program_input`:
+    4 blocks of 125 ETH transfers and 125 token calls as forced
+    transactions, block b at timestamp 12 (b + 1), then
+    `generate_witness`), whose canonical JSON must hash to the committed
+    fixture's sha256; the five EF BlockchainTest units
+    (tests/fixtures/ef_blockchain/smoke.json) run through the port's
+    import path (`utils.ef_blockchain`); and BASELINE-1's 10 transfers go
+    through `Node.submit_transaction` (the mempool's admission) into one
+    block at timestamp 12, whose canonical JSON must hash to
+    `build.BASELINE1_SHA256`.  Runs with the host engines on."""
+    import gzip
+    import hashlib
+
+    from ethrex_tpu_torch import fixtures
+    from ethrex_tpu_torch.fixtures import build
+    from ethrex_tpu_torch.utils import ef_blockchain
+
+    walls: dict = {}
+    pi3 = build.baseline3_program_input(walls=walls)
+    got = hashlib.sha256(fixtures.canonical_json(pi3.to_json())).hexdigest()
+    want = hashlib.sha256(gzip.decompress(
+        (fixtures.HERE / "baseline3_program_input.json.gz").read_bytes())
+    ).hexdigest()
+    if got != want:
+        raise AssertionError(f"[node] BASELINE-3 built by the port's node "
+                             f"hashes to {got}, the committed fixture to "
+                             f"{want}")
+    log(f"[node] BASELINE-3 built by the port's node in "
+        f"{walls['build']:.3f} s: produce_block s each "
+        f"{json.dumps([round(w, 4) for w in walls['produce_block']])}, "
+        f"generate_witness {walls['generate_witness']:.4f} s; "
+        f"{len(pi3.blocks)} blocks, "
+        f"{sum(len(b.body.transactions) for b in pi3.blocks)} "
+        f"transactions, {len(pi3.witness.nodes)} witness nodes; sha256 "
+        f"{got} equals the committed fixture's")
+    smoke = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+        "ef_blockchain" / "smoke.json"
+    t0 = time.perf_counter()
+    ef = ef_blockchain.run_fixture_file(str(smoke))
+    ef_s = time.perf_counter() - t0
+    if ef != {"passed": EF_BLOCKCHAIN_UNITS, "skipped": 0, "failures": []}:
+        raise AssertionError(f"[node] the EF blockchain units: {ef}")
+    log(f"[node] the {ef['passed']} EF BlockchainTest units (a valid "
+        f"3-block chain; a bad state root, base fee and gas used; an "
+        f"undecodable RLP) passed through the port's import in "
+        f"{ef_s:.3f} s")
+    t0 = time.perf_counter()
+    pi1 = build.baseline1_program_input(timestamp=12)
+    b1_s = time.perf_counter() - t0
+    block = pi1.blocks[0]
+    got1 = hashlib.sha256(fixtures.canonical_json(pi1.to_json())).hexdigest()
+    if got1 != build.BASELINE1_SHA256:
+        raise AssertionError(f"[node] BASELINE-1 built by the port's node "
+                             f"hashes to {got1}, not "
+                             f"{build.BASELINE1_SHA256}")
+    log(f"[node] BASELINE-1 built through the mempool in {b1_s:.3f} s: "
+        f"{len(block.body.transactions)} transactions, gas "
+        f"{block.header.gas_used}, {len(pi1.witness.nodes)} witness nodes; "
+        f"sha256 {got1} equals fixtures.build.BASELINE1_SHA256")
+    walls.update(ef_blockchain_s=ef_s, baseline1_build_s=b1_s)
+    return dict(baseline3=pi3, baseline3_sha256=got, baseline1=pi1,
+                baseline1_sha256=got1, walls=walls)
+
+
+def executed_path(dev, mode_future, pi) -> dict:
+    """The main path: BASELINE-3's ProgramInput (1,000 transactions over 4
+    blocks) as the port's node built it (`node_phase`), pulled from
+    `SmokeCoordinator` by the
     port's `ProverClient(backend, [(host, port)]).poll_once()`, which
     proves it at groth16 through `GpuBackend.prove` (execution, its VM
     batch and access records, the state, TransferAir, TokenAir and
@@ -2209,11 +2294,9 @@ def executed_path(dev, mode_future) -> dict:
     from ethrex_tpu_torch.prover import gpu_backend, protocol
     from ethrex_tpu_torch.prover.client import ProverClient
 
-    t0 = time.perf_counter()
-    pi = fixtures.load_program_input("baseline3")
     want = fixtures.expected("baseline3")
-    log(f"[executed] BASELINE-3 ProgramInput loaded in "
-        f"{time.perf_counter() - t0:.2f} s: {len(pi.blocks)} blocks, "
+    log(f"[executed] BASELINE-3 ProgramInput from the port's node: "
+        f"{len(pi.blocks)} blocks, "
         f"{sum(len(b.body.transactions) for b in pi.blocks)} transactions, "
         f"{len(pi.witness.nodes)} witness nodes")
     stats: dict = {}
@@ -2335,19 +2418,19 @@ def reckon_batch(stats, log_blowup: int) -> dict:
             for name, (n, w) in shapes.items()}
 
 
-def verify_job(proof, keys) -> dict:
+def verify_job(proof, keys, pi_json) -> dict:
     """Runs in a child, on the card's host: `GpuBackend(device="cpu")
     .verify_with_input` accepts the executed path's submitted groth16
-    proof with the BASELINE-3 ProgramInput and rejects it with one output
-    byte flipped and with its `vm` metadata removed (the downgrade).
-    Returns the walls."""
+    proof with the node-built BASELINE-3 ProgramInput and rejects it with
+    one output byte flipped and with its `vm` metadata removed (the
+    downgrade).  Returns the walls."""
     torch.set_num_threads(1)
-    from ethrex_tpu_torch import fixtures
+    from ethrex_tpu_torch.guest.execution import ProgramInput
     from ethrex_tpu_torch.prover import groth16_wrap
     from ethrex_tpu_torch.prover.gpu_backend import GpuBackend
 
     groth16_wrap.use_keys(keys)
-    pi = fixtures.load_program_input("baseline3")
+    pi = ProgramInput.from_json(pi_json)
     backend = GpuBackend(device="cpu")
     walls = {}
     flipped = dict(proof)
@@ -2365,6 +2448,73 @@ def verify_job(proof, keys) -> dict:
             raise AssertionError(f"verify_with_input gave {got} on the "
                                  f"{name} proof ({want} expected)")
     return walls
+
+
+# the kernels every STARK launches (the wrap's K5 needs a groth16 format)
+STARK_KERNELS = ("ntt", "poseidon2_hash_leaves", "poseidon2_merkle_subtree",
+                 "mod_matmul", "fri_fold", "air_combine", "batch_inv",
+                 "divisor_inv", "deep_compose", "quotient_combine",
+                 "ext_poly_eval", "to_mont_cols")
+
+
+def baseline1_path(dev, pi) -> dict:
+    """BASELINE-1, the only single-block, transfer-mode batch, as the
+    port's node built it through the mempool: `GpuBackend(device=dev)
+    .prove(pi, "stark")` (the state, TransferAir and binding STARKs), its
+    counts zeroed just before and read just after; its mode must be
+    `transfer` (`bench_suite.py measure`'s assertion)."""
+    from ethrex_tpu_torch import kernels
+    from ethrex_tpu_torch.prover.gpu_backend import GpuBackend
+
+    stats: dict = {}
+    traces: dict = {}
+    backend = GpuBackend(device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    proof = backend.prove(pi, "stark", stats=stats, traces=traces)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    mode = proof.get("vm", {}).get("mode")
+    if mode != "transfer":
+        raise AssertionError(f"[baseline1] mode {mode!r}, transfer "
+                             f"expected")
+    missing = [k for k in STARK_KERNELS if launches.get(k, 0) <= 0]
+    if missing or launches["ext_poly_eval"] != len(traces):
+        raise AssertionError(f"[baseline1] kernels not launched: "
+                             f"{missing}; ext_poly_eval "
+                             f"{launches['ext_poly_eval']} for "
+                             f"{len(traces)} STARKs")
+    names = [n for n in ("state", "transfer", "token", "binding")
+             if n in stats]
+    for name in names:
+        st = stats[name]
+        log(f"[baseline1] {name} proof: trace {st['n']} x {st['width']} "
+            f"(N = {st['N']}), host public inputs {st['pub_s']:.3f} s, "
+            f"host trace generation {st['trace_s']:.3f} s, proof "
+            f"{st['total_s']:.3f} s")
+    log(f"[baseline1] GpuBackend.prove(BASELINE-1, 'stark') {wall:.3f} s: "
+        f"execute {stats['execute_s']:.3f} s, build_vm_batch "
+        f"{stats['build_vm_batch_s']:.3f} s, access records "
+        f"{stats['records_s']:.3f} s; mode {mode}; STARKs {names}; "
+        f"launches {json.dumps(launches)}")
+    return dict(proof=proof, launches=launches, prove_s=wall,
+                stats={k: stats[k] for k in ("execute_s", "build_vm_batch_s",
+                                             "records_s")})
+
+
+def verify_stark_job(proof) -> float:
+    """Runs in a child, on the card's host: `GpuBackend(device="cpu")
+    .verify` accepts BASELINE-1's stark proof.  Returns the wall."""
+    torch.set_num_threads(1)
+    from ethrex_tpu_torch.prover.gpu_backend import GpuBackend
+
+    t0 = time.perf_counter()
+    if GpuBackend(device="cpu").verify(proof) is not True:
+        raise AssertionError("[baseline1] GpuBackend(device='cpu').verify "
+                             "refused the stark proof")
+    return time.perf_counter() - t0
 
 
 def resume_drill(dev) -> dict:
@@ -3038,9 +3188,12 @@ def main() -> int:
         log_host_engines(host["checks"])
         log(f"[phase] host engine checks done at "
             f"{time.perf_counter() - t_start:.1f} s")
+        node = node_phase()
+        log(f"[phase] node done at {time.perf_counter() - t_start:.1f} s")
+        pi3_json = node["baseline3"].to_json()
         keys = install_wrap_keys(keys_future)
-        mode_future = pool.submit(expected_mode_job, "baseline3")
-        executed = executed_path(dev, mode_future)
+        mode_future = pool.submit(expected_mode_job, pi3_json)
+        executed = executed_path(dev, mode_future, node["baseline3"])
         log(f"[phase] executed path done at "
             f"{time.perf_counter() - t_start:.1f} s")
         prof = profile_path(dev, executed)
@@ -3049,7 +3202,12 @@ def main() -> int:
         checks = [pool.submit(check_path_job, "executed path",
                               executed["airs"], executed["proofs"],
                               executed["out"], executed["params"], keys)]
-        verify_future = pool.submit(verify_job, executed["out"], keys)
+        verify_future = pool.submit(verify_job, executed["out"], keys,
+                                    pi3_json)
+        b1 = baseline1_path(dev, node["baseline1"])
+        b1_verify = pool.submit(verify_stark_job, b1["proof"])
+        log(f"[phase] BASELINE-1 done at "
+            f"{time.perf_counter() - t_start:.1f} s")
         result = main_path(dev, rng)
         log(f"[phase] synthesized VM path done at "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -3091,6 +3249,10 @@ def main() -> int:
         for f in checks:
             f.result()
         walls = verify_future.result()
+        b1["verify_s"] = b1_verify.result()
+        log(f"[verify] in a child on the card's host, GpuBackend(device="
+            f"'cpu').verify accepted BASELINE-1's stark proof in "
+            f"{b1['verify_s']:.3f} s")
         log(f"[verify] in a child on the card's host, GpuBackend(device="
             f"'cpu').verify_with_input accepted the executed path's "
             f"submitted groth16 proof in {walls['honest']:.3f} s and "
@@ -3116,14 +3278,16 @@ def main() -> int:
         vm_n = result["launches"][name]
         fused_n = fused["launches"].get(name, 0)
         two_n = two["launches"][name]
+        b1_n = b1["launches"][name]
         out.append({
             "name": name, "route": "cuda",
             "source": f"ethrex_tpu_torch/{src}",
             "replaces": REPLACES[name],
-            "launches": exe_n + vm_n + fused_n + two_n,
+            "launches": exe_n + vm_n + fused_n + two_n + b1_n,
             "launches_by_path": {"executed_groth16": exe_n,
                                  "vm_groth16": vm_n, "fused_step": fused_n,
-                                 "two_proof_groth16": two_n},
+                                 "two_proof_groth16": two_n,
+                                 "baseline1_stark": b1_n},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
@@ -3154,7 +3318,12 @@ def main() -> int:
         for k, v in fused["rows"].items()},
         "profile_source": prof["source"],
         "host_engines": {**host, "execute_s": executed["stats"]["execute_s"],
-                         "verify_with_input_s": walls}}))
+                         "verify_with_input_s": walls},
+        "node": {"baseline3_sha256": node["baseline3_sha256"],
+                 "baseline1_sha256": node["baseline1_sha256"],
+                 **node["walls"]},
+        "baseline1": {"prove_s": b1["prove_s"], "verify_s": b1["verify_s"],
+                      **b1["stats"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,8 @@
 """VM state database: journaled account/storage cache over a pluggable
-backing source.  A copy of `ethrex_tpu/evm/db.py` without the sources and
-hooks that only the node uses (its in-memory source, the pipelined
-importer's `drain_dirty`/`rebase` and the block-access-list journal
-feed); the prover's backing source is
-`guest.execution.WitnessSource`, pruned witness tries.
+backing source.  A copy of `ethrex_tpu/evm/db.py` without its in-memory
+source.  Two backing sources implement `VmDatabase`: the node's
+`storage.store.StoreSource` (trie-backed) and the prover's
+`guest.execution.WitnessSource` (pruned witness tries).
 
 `StateDB` layers an intra-block cache + journal on top: every mutation
 pushes an undo entry; snapshot/revert are list indices (cheap, like the
@@ -101,6 +100,10 @@ class StateDB:
         self.source = source
         self.accounts: dict[bytes, CachedAccount] = {}
         self.journal: list = []
+        # optional drain target: begin/finalize_tx move journal entries
+        # here instead of dropping them (the BAL recorder's feed —
+        # primitives/bal.py; None = off, zero cost)
+        self.journal_sink: list | None = None
         # EIP-161 (Spurious Dragon+): delete touched-empty accounts at
         # merkleize time; pre-161 forks keep them (executor sets this)
         self.clear_empty = True
@@ -117,6 +120,10 @@ class StateDB:
         # block-scoped write-back tracking (consumed by apply_account_updates)
         self.dirty_accounts: set[bytes] = set()
         self.dirty_storage: dict[bytes, set[int]] = {}
+        # accounts whose storage was wiped in an already-drained block while
+        # the source still sits at the batch-parent root (pipelined import):
+        # source storage reads for them are stale until rebase()
+        self.source_cleared: set[bytes] = set()
 
     # ---------------- account loading ----------------
     def _load(self, address: bytes) -> CachedAccount:
@@ -155,7 +162,8 @@ class StateDB:
         if slot in acct.storage:
             return acct.storage[slot]
         value = 0
-        if acct.exists and not acct.storage_cleared:
+        if (acct.exists and not acct.storage_cleared
+                and address not in self.source_cleared):
             value = self.source.get_storage(address, slot)
         acct.storage[slot] = value
         self.journal.append(("storage_load", address, slot))
@@ -168,6 +176,8 @@ class StateDB:
         if any(v != 0 for v in acct.storage.values()):
             return True
         if not acct.exists or acct.storage_cleared:
+            return False
+        if address in self.source_cleared:
             return False
         return self.source.account_has_storage(address)
 
@@ -367,6 +377,8 @@ class StateDB:
 
     # ---------------- tx lifecycle ----------------
     def begin_tx(self):
+        if self.journal_sink is not None:
+            self.journal_sink.extend(self.journal)
         self.journal.clear()
         self.accessed_addresses = set()
         self.accessed_slots = set()
@@ -379,4 +391,40 @@ class StateDB:
 
     def finalize_tx(self):
         """Clear journal; keep account cache for the rest of the block."""
+        if self.journal_sink is not None:
+            self.journal_sink.extend(self.journal)
         self.journal.clear()
+
+    def drain_dirty(self):
+        """Reset dirty/cleared tracking WITHOUT changing the source —
+        the pipelined importer snapshots the dirty state per block
+        (blockchain.DirtySnapshot) and keeps executing on the warm cache
+        while the snapshot merkleizes on another thread.
+
+        An account whose storage was wiped this block (SELFDESTRUCT /
+        destroy+recreate) must NOT fall through to the un-rebased source
+        for later blocks of the same batch — those reads would see stale
+        pre-clear slots.  Record it in source_cleared (consulted by
+        get_storage / has_nonempty_storage) instead of leaving
+        storage_cleared set, which would wrongly re-emit the clear at the
+        next merkleize and drop slots recreated this block."""
+        self.dirty_accounts = set()
+        self.dirty_storage = {}
+        for addr, acct in self.accounts.items():
+            if acct.storage_cleared:
+                self.source_cleared.add(addr)
+                acct.storage_cleared = False
+
+    def rebase(self, source: VmDatabase):
+        """Re-point this StateDB at a new backing source whose state already
+        contains every dirty update (i.e. the tries were just flushed with
+        apply_updates_to_tries).  Keeps the account cache hot; resets the
+        dirty/cleared tracking so the next flush applies only what changed
+        since, and so net-zero-write detection compares against the flushed
+        root rather than the original one (batch-import interval flushes)."""
+        self.source = source
+        self.dirty_accounts = set()
+        self.dirty_storage = {}
+        self.source_cleared = set()
+        for acct in self.accounts.values():
+            acct.storage_cleared = False

@@ -133,6 +133,14 @@ def privileged_tx_digest(tx_hashes: list[bytes]) -> bytes:
     return acc
 
 
+class _GuestChainView:
+    """Just enough of a Store for Blockchain's execution helpers (they only
+    touch it when not handed an explicit StateDB, which we always do)."""
+
+    def state_db(self, _root):  # pragma: no cover — guarded by callers
+        raise StatelessExecutionError("guest execution requires witness db")
+
+
 def execution_program(program_input: ProgramInput,
                       write_log: list | None = None,
                       receipts_out: list | None = None) -> ProgramOutput:
@@ -180,7 +188,7 @@ def execution_program(program_input: ProgramInput,
         chain_cursor = hdr
 
     native = _make_native_engine()  # per-batch C++ merkleizer (or None)
-    chain = Blockchain(program_input.config)
+    chain = Blockchain(_GuestChainView(), program_input.config)
     state_root = initial_root
     prev = parent_header
     privileged_hashes = []

@@ -1,41 +1,71 @@
-"""Store: the in-memory core of the node's chain and state facade, and the
-merkleize step of execution — a copy of `ethrex_tpu/storage/store.py`
-without its persistence, node-table layering, canonical-index repair,
-block import and witness-recording hooks.
+"""Store: the node's chain and state facade, and the merkleize step of
+execution — a copy of `ethrex_tpu/storage/store.py` over StorageBackend
+traits.  The in-memory backend is the one here; the persistent backend
+(`storage/persistent.py` over a native key-value log) is not copied yet,
+so `CorruptRecord`, `flush` and `close` serve only a backend that
+brings them.
 
-Layout mirrors the reference's tables: headers, bodies, receipts,
-canonical index, trie nodes (one shared node db for the account trie and
-all storage tries, keyed by node hash), code by hash.  The trie mutations
-of `apply_updates_to_tries` run in the native MPT engine
-(`trie/native_mpt.py`) unless ETHREX_TPU_NATIVE_MPT=0.
+Layout mirrors upstream ethrex's tables: headers, bodies, receipts,
+canonical index, tx locations, trie nodes (one shared node db for the
+account trie and all storage tries, keyed by node hash), code by hash.
+The trie mutations of `apply_updates_to_tries` run in the native MPT
+engine (`trie/native_mpt.py`) unless ETHREX_TPU_NATIVE_MPT=0.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import os
 import threading
 
 from ..crypto.keccak import keccak256
-from ..evm.db import StateDB, TrieSource
 from ..primitives import rlp
 from ..primitives.account import AccountState, EMPTY_CODE_HASH, EMPTY_TRIE_ROOT
-from ..primitives.block import BlockBody, BlockHeader
+from ..primitives.block import Block, BlockHeader
 from ..primitives.genesis import Genesis
+from ..evm.db import StateDB, TrieSource, VmDatabase
 from ..trie.trie import Trie
 
 
+log = logging.getLogger("ethrex_tpu_torch.storage.store")
+
+
+class CorruptRecord(RuntimeError):
+    """A persistent record failed its checksum on read.  The record has
+    been quarantined (deleted from the KV log): derivable tables
+    (canonical index) are rebuilt from surviving chain data; anything
+    else needs a resync or a snapshot restore — the corrupt bytes are
+    never decoded or served."""
+
+    def __init__(self, table: str, key, path: str = ""):
+        self.table = table
+        self.key = key
+        key_repr = key.hex() if isinstance(key, (bytes, bytearray)) \
+            else repr(key)
+        where = f" ({path})" if path else ""
+        super().__init__(
+            f"checksum mismatch in table {table!r} key {key_repr}{where}"
+            " — record quarantined; re-derive it or restore from a snapshot")
+
+
 class StorageBackend:
-    """KV-table backend interface."""
+    """KV-table backend interface (in-memory, or the native C++ log store)."""
 
     def table(self, name: str) -> dict:
         raise NotImplementedError
+
+    def flush(self):
+        """Durability barrier; no-op for volatile backends."""
 
     def batch(self):
         """Atomic multi-table write group; volatile backends need no
         journal, so the base is a no-op context."""
         return contextlib.nullcontext(self)
+
+    def close(self):
+        """Release the backing resources; no-op for volatile backends."""
 
 
 class InMemoryBackend(StorageBackend):
@@ -62,6 +92,7 @@ class Store:
         self.bodies = b.table("bodies")            # hash -> BlockBody
         self.receipts = b.table("receipts")        # hash -> list[Receipt]
         self.canonical = b.table("canonical")      # number -> hash
+        self.tx_index = b.table("tx_index")        # tx_hash -> (blk_hash, idx)
         self.nodes = b.table("trie_nodes")         # node_hash -> encoded
         self.code = b.table("code")                # code_hash -> bytes
         self.meta = b.table("meta")                # misc: head, genesis...
@@ -112,6 +143,7 @@ class Store:
             root = state.commit()
             header = genesis.header(root)
             block_hash = header.hash
+            from ..primitives.block import BlockBody
             # the genesis chain records are one journaled unit (trie
             # nodes above are content-addressed: a partial alloc write
             # is invisible without these records and re-written on the
@@ -130,13 +162,210 @@ class Store:
                 self.meta["config"] = config_fp
             return header
 
+    # ---------------- chain data ----------------
+    def add_block(self, block: Block, receipts: list):
+        with self.lock:
+            h = block.hash
+            # header+body+receipts+txloc land as one journaled unit —
+            # a crash between them cannot leave a half-imported block
+            with self.write_group():
+                self.headers[h] = block.header
+                self.bodies[h] = block.body
+                self.receipts[h] = receipts
+                for i, tx in enumerate(block.body.transactions):
+                    # a sibling block may repeat a tx that is already
+                    # canonically included — keep the canonical
+                    # location; fork choice rewrites it if the sibling
+                    # ever wins (docs/CHAIN_RESILIENCE.md)
+                    loc = self.tx_index.get(tx.hash)
+                    if loc is not None and loc[0] != h:
+                        hdr = self.headers.get(loc[0])
+                        if hdr is not None and \
+                                self.canonical_hash(hdr.number) == loc[0]:
+                            continue
+                    self.tx_index[tx.hash] = (h, i)
+
+    def set_canonical(self, number: int, block_hash: bytes):
+        with self.lock:
+            self.canonical[number] = block_hash
+
+    def delete_canonical(self, number: int):
+        """Drop a canonical-index entry (fork choice retiring heights
+        above a new, lower head).  Goes through the table's delete path
+        so the drop journals with the rest of the write group — a raw
+        pop on the backing dict would bypass the batch on persistent
+        backends."""
+        with self.lock:
+            self.canonical.pop(number, None)
+
+    def set_tx_location(self, tx_hash: bytes, block_hash: bytes,
+                        index: int):
+        with self.lock:
+            self.tx_index[tx_hash] = (block_hash, index)
+
+    def delete_tx_location(self, tx_hash: bytes):
+        with self.lock:
+            self.tx_index.pop(tx_hash, None)
+
+    def canonical_tx_location(self, tx_hash: bytes):
+        """(block_hash, index) for a tx ONLY if the referenced block is
+        still canonical at its height — the verify-on-read guard: fork
+        choice prunes tx locations inside the reorg write group, but an
+        orphaned inclusion must never be served even if a stale entry
+        survives (docs/CHAIN_RESILIENCE.md)."""
+        loc = self.tx_index.get(tx_hash)
+        if loc is None:
+            return None
+        header = self.headers.get(loc[0])
+        if header is None or self.canonical_hash(header.number) != loc[0]:
+            from ..utils.metrics import record_txloc_stale_read
+
+            record_txloc_stale_read()
+            return None
+        return loc
+
+    def set_head(self, block_hash: bytes):
+        with self.lock:
+            self.meta["head"] = block_hash
+
+    def flush(self):
+        """Durability barrier (persistent backends); no-op in memory."""
+        self.backend.flush()
+
     def write_group(self):
-        """Atomic multi-table write group (the backend's `batch`; a no-op
-        context in memory)."""
+        """Atomic multi-table write group (reentrant per thread): on a
+        persistent backend the writes commit through one write-ahead
+        journal, so a crash at any byte offset applies all of them or
+        none (see docs/STORAGE_RESILIENCE.md)."""
         return self.backend.batch()
 
+    def close(self):
+        """Flush-and-close for persistent backends; idempotent.  Settles
+        any pending node-diff layers first so a clean shutdown leaves no
+        restart re-import tail."""
+        with self.lock:
+            if self.layering_enabled():
+                with self.write_group():
+                    self.nodes.flatten_all()
+            self.flush()
+            self.backend.close()
+
+    # -- node-table diff layering (storage/layering.py) --------------------
+    def enable_layering(self) -> None:
+        """Stack per-block diff layers over the trie-node table: nodes
+        reach the durable backend only when their block finalizes
+        (upstream seat: crates/storage/layering.rs)."""
+        from .layering import LayeredTable
+
+        if not isinstance(self.nodes, LayeredTable):
+            self.nodes = LayeredTable(self.nodes)
+
+    def layering_enabled(self) -> bool:
+        from .layering import LayeredTable
+
+        return isinstance(self.nodes, LayeredTable)
+
+    # chains without a finality signal (dev mode) still settle layers
+    # once they fall this many blocks behind the tip — bounding both the
+    # RAM window and the restart re-import tail.  STRIDE adds hysteresis
+    # so a full window settles ~once per STRIDE blocks in one burst
+    # instead of re-introducing a per-block fsync trickle
+    MAX_NODE_LAYERS = 64
+    SETTLE_STRIDE = 16
+
+    def push_node_layer(self, number: int, block_hash: bytes) -> None:
+        if not self.layering_enabled():
+            return
+        self.nodes.push_layer((number, block_hash))
+        if len(self.nodes.layers) > \
+                self.MAX_NODE_LAYERS + self.SETTLE_STRIDE:
+            self._settle_node_layers(number - self.MAX_NODE_LAYERS)
+
+    def discard_node_layer(self, number: int, block_hash: bytes) -> None:
+        """Fold a failed import's layer into its surroundings."""
+        if self.layering_enabled():
+            self.nodes.merge_down((number, block_hash))
+
+    def finalize_node_layers(self, finalized_number: int) -> None:
+        """Flatten every layer at or below the finalized height into the
+        backend — INCLUDING stale-branch layers.  Dropping stale layers
+        would be unsound here: the node tables are content-addressed and
+        the native MPT engine de-duplicates, so a node first written by a
+        stale branch may be silently shared by the canonical chain;
+        selective dropping needs per-node refcounting,
+        which is future work.  What layering buys today is WRITE
+        BATCHING (one durable burst per settle instead of a per-block
+        trickle) and a bounded restart-regeneration tail."""
+        if self.layering_enabled():
+            self._settle_node_layers(finalized_number)
+
+    def _settle_node_layers(self, cutoff_number: int) -> None:
+        settled = False
+        # the settle burst is one journaled unit: a crash mid-flatten
+        # must not leave half a layer's nodes durable with the layer
+        # gone on restart (the re-import tail regenerates from the last
+        # full settle)
+        with self.write_group():
+            for tag in list(self.nodes.layer_tags()):
+                number, _block_hash = tag
+                if number > cutoff_number:
+                    continue
+                self.nodes.flatten_layer(tag)
+                settled = True
+        if settled:
+            self.flush()
+
+    def head_header(self) -> BlockHeader:
+        return self.headers[self.meta["head"]]
+
+    def get_header(self, block_hash: bytes) -> BlockHeader | None:
+        return self.headers.get(block_hash)
+
+    def get_body(self, block_hash: bytes):
+        return self.bodies.get(block_hash)
+
+    def get_block(self, block_hash: bytes) -> Block | None:
+        h = self.headers.get(block_hash)
+        b = self.bodies.get(block_hash)
+        if h is None or b is None:
+            return None
+        return Block(h, b)
+
     def canonical_hash(self, number: int) -> bytes | None:
-        return self.canonical.get(number)
+        try:
+            return self.canonical.get(number)
+        except CorruptRecord:
+            # the canonical index is derivable: walk parent hashes down
+            # from the head and rewrite the quarantined entry
+            return self._rebuild_canonical(number)
+
+    def _rebuild_canonical(self, number: int) -> bytes | None:
+        with self.lock:
+            cursor = self.head_header()
+            while cursor.number > number:
+                parent = self.headers.get(cursor.parent_hash)
+                if parent is None:
+                    return None
+                cursor = parent
+            if cursor.number != number:
+                return None
+            self.canonical[number] = cursor.hash
+            log.warning("rebuilt quarantined canonical entry %d -> 0x%s",
+                        number, cursor.hash.hex())
+            from ..utils.metrics import record_store_rebuild
+
+            record_store_rebuild()
+            return cursor.hash
+
+    def get_canonical_block(self, number: int) -> Block | None:
+        h = self.canonical_hash(number)
+        return self.get_block(h) if h else None
+
+    def get_receipts(self, block_hash: bytes):
+        return self.receipts.get(block_hash)
+
+    def latest_number(self) -> int:
+        return self.head_header().number
 
     # ---------------- state access ----------------
     def state_source(self, state_root: bytes) -> "StoreSource":
@@ -145,18 +374,44 @@ class Store:
     def state_db(self, state_root: bytes) -> StateDB:
         return StateDB(self.state_source(state_root))
 
+    def account_state(self, state_root: bytes,
+                      address: bytes) -> AccountState | None:
+        trie = Trie.from_nodes(state_root, self.nodes, share=True)
+        raw = trie.get(keccak256(address))
+        return AccountState.decode(raw) if raw else None
+
+    def storage_at(self, state_root: bytes, address: bytes,
+                   slot: int) -> int:
+        acct = self.account_state(state_root, address)
+        if acct is None or acct.storage_root == EMPTY_TRIE_ROOT:
+            return 0
+        st = Trie.from_nodes(acct.storage_root, self.nodes, share=True)
+        raw = st.get(keccak256(slot.to_bytes(32, "big")))
+        return rlp.decode_int(rlp.decode(raw)) if raw else 0
+
     # ---------------- state write-back ----------------
-    def apply_account_updates(self, parent_root: bytes,
-                              state_db: StateDB) -> bytes:
+    def apply_account_updates(self, parent_root: bytes, state_db: StateDB,
+                              nodes: dict | None = None,
+                              write_log: list | None = None) -> bytes:
         """Write dirty accounts/slots from an executed block into the tries;
-        returns the new state root (the merkleize step of the reference's
-        add_block pipeline, blockchain.rs apply_account_updates_batch)."""
+        returns the new state root (the merkleize step of upstream's
+        add_block pipeline, blockchain.rs apply_account_updates_batch).
+
+        `nodes` overrides the node table (witness recording / stateless
+        execution use a recording or witness-only table); `write_log`
+        (optional list) collects the raw trie writes exactly like the
+        stateless path's log."""
         with self.lock:
-            # one native engine over the store's own table: the C++ map
-            # warms up once and later applies skip Python
-            return apply_updates_to_tries(self.nodes, self.code, parent_root,
-                                          state_db,
-                                          native=self._native_engine())
+            if nodes is None:
+                # persistent native engine over the store's own table: the
+                # C++ map warms up once and batch applies skip Python
+                native = self._native_engine()
+            else:
+                native = _make_native_engine()
+            return apply_updates_to_tries(
+                nodes if nodes is not None else self.nodes,
+                self.code, parent_root, state_db, native=native,
+                write_log=write_log)
 
     def _native_engine(self):
         engine = getattr(self, "_native_mpt", "unset")
@@ -185,8 +440,8 @@ def apply_updates_to_tries(node_table: dict, code_table, parent_root: bytes,
 
     Inserts are applied BEFORE deletes (per trie): a delete after an insert
     into the same branch avoids collapse paths that would need sibling
-    nodes a pruned witness doesn't carry (same ordering rule as the
-    reference's guest state application, block_execution_witness.rs:541).
+    nodes a pruned witness doesn't carry (same ordering rule as
+    upstream's guest state application, block_execution_witness.rs:541).
 
     `write_log` (optional) collects the block's state writes for the
     execution proof (guest/access_log.py): ("acct", addr, None, old_rlp,
@@ -282,17 +537,35 @@ def apply_updates_to_tries(node_table: dict, code_table, parent_root: bytes,
 
 
 class StoreSource(TrieSource):
-    """VmDatabase over the Store's tries at a fixed state root."""
+    """VmDatabase over the Store's tries at a fixed state root.
 
-    def __init__(self, store: Store, state_root: bytes):
-        super().__init__(store.nodes, state_root)
+    `nodes` overrides the node table (recording table for witness
+    generation); `on_code` / `on_block_hash` are optional observation hooks.
+    """
+
+    def __init__(self, store: Store, state_root: bytes,
+                 nodes: dict | None = None, on_code=None, on_block_hash=None,
+                 header_overrides: dict | None = None):
+        super().__init__(nodes if nodes is not None else store.nodes,
+                         state_root)
         self.store = store
         self.state_root = state_root
+        self.on_code = on_code
+        self.on_block_hash = on_block_hash
+        # number -> hash for blocks not yet canonical (batch import)
+        self.header_overrides = header_overrides or {}
 
     def get_code(self, code_hash: bytes) -> bytes:
         if code_hash == EMPTY_CODE_HASH:
             return b""
-        return self.store.code.get(code_hash, b"")
+        code = self.store.code.get(code_hash, b"")
+        if code and self.on_code:
+            self.on_code(code_hash, code)
+        return code
 
     def get_block_hash(self, number: int) -> bytes:
-        return self.store.canonical_hash(number) or b"\x00" * 32
+        h = self.header_overrides.get(number) \
+            or self.store.canonical_hash(number)
+        if h and self.on_block_hash:
+            self.on_block_hash(number, h)
+        return h if h else b"\x00" * 32

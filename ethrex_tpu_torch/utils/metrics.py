@@ -2,9 +2,10 @@
 crate, crates/blockchain/metrics — text exposition format, stdlib only):
 the part of `ethrex_tpu/utils/metrics.py` that the prover process
 reaches.  The registry (`Metrics`, `METRICS`) is copied whole; of the
-recorders only those that the proof client, the phase checkpoints, the
-runtime-error guard, the backend and the tracer call.  The node's
-recorders and the HTTP exporter (`MetricsServer`) are not copied."""
+recorders those that the proof client, the phase checkpoints, the
+runtime-error guard, the backend and the tracer call, and the node's:
+block import, fork choice, the store, the mempool and sender recovery.
+The HTTP exporter (`MetricsServer`) is not copied."""
 
 from __future__ import annotations
 
@@ -337,3 +338,169 @@ def record_proof_wall(seconds: float):
         METRICS.set("proofs_per_hour", 3600.0 / seconds,
                     "Extrapolated proofs per hour from the last "
                     "end-to-end backend prove wall-clock")
+
+
+# ---------------------------------------------------------------------------
+# the node's recorders: block import, fork choice, the store, the mempool
+# and sender recovery
+
+def record_block(block, elapsed: float):
+    METRICS.inc("ethrex_blocks_imported_total", 1,
+                "Blocks imported through add_block")
+    METRICS.inc("ethrex_gas_used_total", block.header.gas_used,
+                "Cumulative gas executed")
+    METRICS.inc("ethrex_transactions_total",
+                len(block.body.transactions), "Transactions executed")
+    METRICS.set("ethrex_head_block", block.header.number,
+                "Current head block number")
+    if elapsed > 0:
+        METRICS.set("ethrex_last_block_mgas_per_s",
+                    block.header.gas_used / elapsed / 1e6,
+                    "Execution throughput of the last imported block")
+
+
+def record_chain_reorg(depth: int):
+    METRICS.inc("chain_reorgs_total", 1,
+                "Execution-chain reorgs applied by fork choice (at "
+                "least one formerly-canonical block was orphaned)")
+    _observe_safe("chain_reorg_depth", float(depth), None,
+                  "Blocks orphaned per execution-chain reorg (the "
+                  "deep_reorg alert pair reads the p95 of this)")
+
+
+def record_mempool_reinjection():
+    METRICS.inc("mempool_reinjections_total", 1,
+                "Transactions re-injected into the mempool from "
+                "orphaned blocks after a reorg (the typed reinjected "
+                "path: admission fee-floor/sender-cap rules bypassed)")
+
+
+def record_mempool_reorg_eviction(reason: str):
+    METRICS.inc("mempool_reorg_evictions_total", 1,
+                "Pool entries dropped by a reorg transition, any reason")
+    METRICS.inc_labeled("mempool_reorg_evictions_by_reason",
+                        {"reason": reason}, 1.0,
+                        help_text="Reorg-driven mempool drops by reason "
+                                  "(adopted = included on the winning "
+                                  "branch, nonce_below_account / "
+                                  "insufficient_balance = revalidation "
+                                  "prunes, blob_unrecoverable = orphaned "
+                                  "blob tx whose sidecar is gone)")
+
+
+def record_txloc_stale_read():
+    METRICS.inc("txloc_stale_reads_total", 1,
+                "Transaction-location lookups that referenced a "
+                "non-canonical block and were refused (verify-on-read "
+                "guard; should stay 0 while fork choice prunes txlocs "
+                "in the same write group)")
+
+
+
+def record_store_corruption():
+    METRICS.inc("store_corruption_total", 1,
+                "Persistent-store records whose checksum failed on read "
+                "(detected, quarantined, never served)")
+
+
+def record_store_rebuild():
+    METRICS.inc("store_rebuilds_total", 1,
+                "Quarantined records re-derived from surviving chain data "
+                "(canonical index rebuilt by parent-hash walk)")
+
+
+def record_mempool_admission():
+    METRICS.inc("mempool_admitted_total", 1,
+                "Transactions admitted into the mempool")
+
+
+def record_mempool_rejection(reason: str):
+    METRICS.inc("mempool_rejections_total", 1,
+                "Transactions rejected by mempool admission, any reason")
+    METRICS.inc_labeled("mempool_rejections_by_reason", {"reason": reason},
+                        1.0,
+                        help_text="Mempool admission rejections by typed "
+                                  "reason (nonce_too_low, underpriced, "
+                                  "insufficient_funds, invalid_signature, "
+                                  "pool_full, blobs_missing, privileged, "
+                                  "wrong_chain_id, nonce_gap, "
+                                  "sender_limit, fee_below_floor)")
+
+
+def record_mempool_replacement():
+    METRICS.inc("mempool_replacements_total", 1,
+                "Replacement-by-fee admissions (same sender+nonce with "
+                "a >=10% fee bump); the replacement-churn alert reads "
+                "this — a fee-bump war churns the pool without adding "
+                "throughput")
+
+
+def record_mempool_eviction(reason: str):
+    METRICS.inc("mempool_evictions_total", 1,
+                "Transactions evicted from the mempool after admission, "
+                "any reason")
+    METRICS.inc_labeled("mempool_evictions_by_reason", {"reason": reason},
+                        1.0,
+                        help_text="Mempool evictions by reason (fifo "
+                                  "capacity, blob_pool_full, replaced, "
+                                  "invalid_at_build)")
+
+
+def record_mempool_occupancy(size: int, utilization: float):
+    METRICS.set("mempool_size", size,
+                "Transactions currently resident in the mempool")
+    METRICS.set("mempool_utilization", utilization,
+                "Mempool occupancy over capacity — the max of the "
+                "regular and blob sub-pool fill fractions (1.0 = every "
+                "new tx evicts another; the saturation alert reads "
+                "this)")
+
+
+def observe_time_in_pool(seconds: float, reason: str = "included"):
+    # labelled by removal reason so inclusion dwell is not polluted by
+    # eviction/prune/reorg dwell (they answer different questions:
+    # "how long until a block?" vs "how long do we hold junk?")
+    _observe_safe("mempool_time_in_pool_seconds", seconds,
+                  {"reason": reason},
+                  "Admission-to-removal dwell time of mempool "
+                  "transactions, labelled by removal reason (included "
+                  "vs evicted/pruned/reorg/...)")
+
+
+def observe_block_execution(seconds: float):
+    _observe_safe("block_execution_seconds", seconds, None,
+                  "EVM execution time per block (execute_block)")
+
+
+def observe_block_import(seconds: float):
+    _observe_safe("block_import_seconds", seconds, None,
+                  "End-to-end block import time (add_block)")
+
+
+def observe_import_stage(stage: str, seconds: float):
+    """Sub-stage attribution of block import (execute / merkleize /
+    store_write), both the per-block and the pipelined path."""
+    _observe_safe("block_import_stage_seconds", seconds, {"stage": stage},
+                  "Block import sub-stage latency (execute / merkleize / "
+                  "store_write legs of add_block and the pipelined "
+                  "importer)")
+
+
+
+def record_import_throughput(mgas_per_sec: float):
+    METRICS.set("l1_import_mgas_per_sec", mgas_per_sec,
+                "Execution throughput of the last pipelined block-batch "
+                "import (Mgas/s; the bench headline L1 number, live)")
+
+
+def record_senders_recovered(count: int):
+    METRICS.inc("senders_recovered_total", count,
+                "Transaction senders recovered by the batched "
+                "sender-recovery stage (either engine; excludes "
+                "cache hits)")
+
+
+def observe_sender_recovery_batch(seconds: float):
+    _observe_safe("sender_recovery_batch_seconds", seconds, None,
+                  "Wall-clock of one batched sender-recovery call "
+                  "(whole tx list, all pool workers joined)")

@@ -357,9 +357,9 @@ class Tracer:
 TRACER = Tracer()
 
 # Stage observers: callables (span_name, stage, seconds) invoked on every
-# stage-span exit, after the prover_stage_seconds observation.  The
-# reference's perf profiler (ethrex_tpu/perf/profiler.py) registers here
-# to fold stage spans into its attribution tree.  Observers run under the same
+# stage-span exit, after the prover_stage_seconds observation.  The perf
+# profiler (perf/profiler.py) registers here to fold stage spans into its
+# attribution tree.  Observers run under the same
 # never-raise guard as the rest of span exit.
 STAGE_OBSERVERS: list = []
 

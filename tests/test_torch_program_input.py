@@ -9,7 +9,11 @@ Each block's 250 transactions are passed to `Node.produce_block` as
 sender would refuse them.  The tests hold the committed fixture
 (`ethrex_tpu_torch/fixtures/`) equal to a fresh build, byte for byte, and
 its expected results equal to what the reference computes on it; the
-port's `ProgramInput` round-trips the fixture unchanged.  The small
+port's `ProgramInput` round-trips the fixture unchanged.  The reference
+build here stays the fixture's check; the port's own node now builds the
+same bytes (`ethrex_tpu_torch/fixtures/build.py baseline3_program_input`,
+held to this fixture by tests/test_torch_node.py
+`test_baseline3_build_is_the_committed_fixture`).  The small
 `mixed` fixture (tests/test_torch_host_batches.py `mixed_batch`: two ETH
 transfers and two token calls) is what tests/test_torch_cuda.py proves
 with `GpuBackend` on the card.
